@@ -1,0 +1,79 @@
+"""MAC-VO runner of the PyTorch/CUDA port (counterpart of ``macvo.py``).
+
+Usage:
+    python -m macvo_tpu_torch --odom configs/experiment/macvo/MACVO_Performant.yaml \\
+                              --data configs/sequence/TartanAirv2_RealAsset.yaml
+
+Runs the odometry over the sequence on ``--device`` (``cuda`` by default),
+writes ``poses.npy`` / ``ref_poses.npy`` / ``tensor_map.npz`` under
+``<resultRoot>/<name>_<time>/`` and, unless ``--noeval``, prints ATE, RTE,
+ROE and RPE.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from pathlib import Path
+
+import numpy as np
+
+
+def build_sequence(data_cfg, odom_cfg, seq_from=None, seq_to=None):
+    from .data import SequenceBase
+
+    seq = SequenceBase.from_config(data_cfg.Sequence if hasattr(data_cfg, "Sequence") else data_cfg)
+    if seq_from is not None or seq_to is not None:
+        seq.clip(seq_from, seq_to)
+    pre = getattr(odom_cfg, "Preprocess", None)
+    if pre is not None and hasattr(pre, seq.name()):
+        raise NotImplementedError(f"the port has no data transforms yet; {seq.name()} needs {getattr(pre, seq.name())}")
+    return seq
+
+
+def evaluate_run(est: np.ndarray, gt: np.ndarray) -> dict:
+    from .evaluation import evaluate_all
+
+    return evaluate_all(gt.astype(np.float64), est.astype(np.float64))
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description="MAC-VO odometry runner (PyTorch/CUDA port)")
+    parser.add_argument("--odom", type=str, required=True, help="odometry config yaml")
+    parser.add_argument("--data", type=str, default=None,
+                        help="sequence config yaml (default: Data section of --odom)")
+    parser.add_argument("--seq_from", type=int, default=None, help="clip start frame")
+    parser.add_argument("--seq_to", type=int, default=None, help="clip end frame")
+    parser.add_argument("--resultRoot", type=str, default="./results")
+    parser.add_argument("--noeval", action="store_true", help="skip metric evaluation")
+    parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    args = parser.parse_args(argv)
+
+    from .data import DevicePrefetcher
+    from .odometry import MACVO
+    from .utils.config import load_config
+    from .utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    odom_cfg, _ = load_config(Path(args.odom))
+    data_cfg = load_config(Path(args.data))[0] if args.data is not None else odom_cfg.Data
+    seq = build_sequence(data_cfg, odom_cfg, args.seq_from, args.seq_to)
+    name = getattr(odom_cfg.Odometry, "name", "MACVO")
+    out_dir = Path(args.resultRoot) / f"{name}_{time.strftime('%m_%d_%H%M%S')}"
+
+    MACVO.is_valid_config(odom_cfg.Odometry)
+    system = MACVO.from_config(odom_cfg, device=device)
+    print(f"Running {name} on {seq} ({device}) -> {out_dir}", flush=True)
+    system.receive_frames(DevicePrefetcher(seq, device), saveto=out_dir)
+
+    if not args.noeval and (out_dir / "ref_poses.npy").exists():
+        est = np.load(out_dir / "poses.npy")[:, 1:]
+        gt = np.load(out_dir / "ref_poses.npy")[:, 1:]
+        metrics = evaluate_run(est[: gt.shape[0]], gt)
+        print(f"{'metric':<6} {'mean':>10} {'std':>10} {'rmse':>10} {'max':>10}")
+        for k, v in metrics.items():
+            print(f"{k:<6} {v.mean:10.6f} {v.std:10.6f} {v.rmse:10.6f} {v.max:10.6f}")
+
+
+if __name__ == "__main__":
+    main()

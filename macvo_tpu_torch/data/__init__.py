@@ -1,0 +1,7 @@
+from .frame import StereoData, StereoFrame
+from .sequence import DevicePrefetcher, SequenceBase
+
+# Import dataset modules so their classes register.
+from .datasets import tartanair as _tartanair  # noqa: F401
+
+__all__ = ["DevicePrefetcher", "SequenceBase", "StereoData", "StereoFrame"]

@@ -1,0 +1,75 @@
+"""Carry the flax checkpoint (``model/*.npz``) into a torch ``state_dict``.
+
+The npz holds ``/``-joined flax parameter paths (``macvo_tpu/models/flowformer/
+weights.py``). The torch modules of this package are named after the flax
+modules, so a path maps to a state-dict key by ``/`` -> ``.`` and the leaf
+rename below; the array layouts invert ``macvo_tpu/models/flowformer/
+torch_convert.py``:
+
+* Dense ``kernel (in, out)``        -> Linear ``weight (out, in)``
+* Conv ``kernel (kh, kw, in, out)`` -> Conv2d ``weight (out, in, kh, kw)``
+  (the depthwise PEG conv ``(3, 3, 1, C)`` becomes ``(C, 1, 3, 3)`` by the same rule)
+* LayerNorm ``scale``               -> ``weight``
+* ``bias``, ``latents`` and ``gamma`` keep their layout.
+
+The decoder's scanned step stores ONE shared parameter set under
+``memory_decoder/iteration/...``, which is exactly one torch submodule here.
+Conversion happens in memory each time a model loads: no converted file is
+written.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Mapping
+
+import numpy as np
+import torch
+
+
+def flax_to_torch(npz_arrays: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """flax path -> array mapping  =>  torch state_dict (one entry per array)."""
+    out: dict[str, torch.Tensor] = {}
+    for path, arr in npz_arrays.items():
+        parts = path.split("/")
+        leaf = parts[-1]
+        a = np.asarray(arr)
+        if leaf == "kernel":
+            if a.ndim == 2:
+                a = a.T
+            elif a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            else:
+                raise ValueError(f"{path}: unexpected kernel rank {a.ndim}")
+            leaf = "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        elif leaf not in ("bias", "latents", "gamma"):
+            raise ValueError(f"{path}: unknown flax leaf {leaf!r}")
+        key = ".".join(parts[:-1] + [leaf])
+        if key in out:
+            raise ValueError(f"{path}: two flax paths map to torch key {key!r}")
+        out[key] = torch.tensor(np.asarray(a, dtype=np.float32))
+    return out
+
+
+def load_flax_checkpoint(module: torch.nn.Module, npz_path: str | Path) -> None:
+    """Load an npz checkpoint into ``module``: every npz key is consumed exactly
+    once and every parameter is set, each with its shape checked."""
+    with np.load(npz_path) as data:
+        arrays = {k: data[k] for k in data.files}
+    load_state(module, flax_to_torch(arrays))
+
+
+def load_state(module: torch.nn.Module, state: Mapping[str, torch.Tensor]) -> None:
+    own = module.state_dict()
+    missing = sorted(set(own) - set(state))
+    unused = sorted(set(state) - set(own))
+    if missing or unused:
+        raise KeyError(f"checkpoint/model mismatch: missing {missing[:8]} (of {len(missing)}), "
+                       f"unused {unused[:8]} (of {len(unused)})")
+    for key, value in state.items():
+        if tuple(own[key].shape) != tuple(value.shape):
+            raise ValueError(f"parameter {key!r}: checkpoint {tuple(value.shape)} "
+                             f"!= model {tuple(own[key].shape)}")
+    module.load_state_dict(state, strict=True)
