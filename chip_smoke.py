@@ -6,22 +6,29 @@
 Phases, each announced by a flushed, timestamped JSON line:
 
 1. device   - the card's name and power limit (``nvidia-smi``).
-2. build    - ``nvcc`` builds every kernel of the main path for sm_90a from
-              ``macvo_tpu_torch/csrc`` (registers / shared memory from ptxas).
+2. build    - ``nvcc`` builds every kernel of the main paths for sm_90a from
+              ``macvo_tpu_torch/csrc``, one process a source, all at once
+              (registers / shared memory from ptxas).
 3. kernel   - each kernel against its plain PyTorch version on the card at the
-              main path's shape (N = 12,800 pixels, T = 100 tokens; bf16 and
-              fp32), through both entry points (folded weights, as the main
-              path calls it, and the JAX signature), with its time, bound and
-              the plain version's time.
+              main paths' shapes, with its time, bound and the plain version's
+              time: the latent attention at N = 12,800 pixels, T = 100 tokens
+              (bf16 and fp32), through both entry points (folded weights, as
+              the main path calls it, and the JAX signature); the local
+              correlation at the five shapes of a 640x640 PWC forward and an
+              odd one.
 4. network  - FlowFormerCov (fp32, shipped checkpoint, 12 steps) on a 64x96
-              crop of a real pair: the card against the CPU.
+              crop of a real pair, and the three TartanVO networks (PWC and
+              stereo at 128x192, pose net at 112x160): the card against the CPU.
 5. gt       - GT depth/flow frontend on the real 10-frame 640x640 TartanAir v2
               clip through the whole backend; ATE/RTE/ROE within the bounds
               of tests/test_real_asset.py.
 6. performant - MACVO_Performant (fp32, TF32 off), the full checkpoint at
               640x640 with 12 decoder steps, all 10 frames; ATE <= 0.05 m.
 7. fast     - MACVO_Fast (bf16 autocast), same clip; ATE <= 0.08 m.
-8. kernels  - one JSON line listing every ported kernel.
+8. tartanvo - the TartanVO baseline (configs/experiment/baseline/TartanVO.yaml,
+              fp32), same clip; ATE/RTE/ROE within 2 % of the JAX CPU record
+              and 5 correlation launches a frame pair.
+9. kernels  - one JSON line listing every ported kernel.
 
 Each learned run resets the kernels' launch counters right before it and
 reads them right after: every kernel of the path must have launched. Any
@@ -43,6 +50,16 @@ ROOT = Path(__file__).resolve().parent
 CLIP = "configs/sequence/TartanAirv2_RealAsset.yaml"
 GT_BOUNDS = {"ATE": 0.002, "RTE": 0.0025, "ROE": 0.045}       # tests/test_real_asset.py:33-35
 LEARNED_ATE = {"performant": 0.05, "fast": 0.08}
+# TartanVO baseline, JAX package on the CPU, 10 frames at 640x640 (README's baseline row); an accuracy record
+TARTANVO_JAX_CPU = {"ATE": 1.613477, "RTE": 0.360225, "ROE": 3.962729}
+TARTANVO_REL = 0.02
+# (B, C, H, W) of the correlation calls of one 640x640 PWC forward, coarse levels last; then an odd shape
+CORR_SHAPES = [(1, 32, 160, 160), (1, 64, 80, 80), (1, 96, 40, 40), (1, 128, 20, 20), (1, 196, 10, 10)]
+CORR_ODD = (2, 48, 37, 53)
+KERNEL_SOURCES = {   # kernel -> (CUDA source, the TPU kernel it replaces)
+    "latent_cross_attention": ("macvo_tpu_torch/csrc/latent_attn.cu", "macvo_tpu/ops/latent_attn.py:36"),
+    "local_correlation": ("macvo_tpu_torch/csrc/correlation.cu", "macvo_tpu/ops/correlation.py:46"),
+}
 H100 = {"bytes_per_s": 3.35e12, "flops": {"float32": 67e12, "bfloat16": 989e12}}   # H100 SXM data sheet, dense
 _T0 = time.perf_counter()
 
@@ -126,6 +143,92 @@ def phase_kernel(device, n: int, t: int, timed: bool) -> dict:
     return results
 
 
+def correlation_bound_ms(b: int, c: int, h: int, w: int) -> tuple[float, str]:
+    """Least time for one call: f1 and f2 read once, 81 channels written once
+    (fp32), against 2*C*81 FLOPs a pixel at the fp32 rate."""
+    nbytes = (2 * b * c * h * w + b * 81 * h * w) * 4
+    t_bytes = nbytes / H100["bytes_per_s"] * 1e3
+    t_ops = 2 * b * h * w * c * 81 / H100["flops"]["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_correlation(device, shapes, timed: bool) -> dict:
+    """local_correlation kernel vs its plain version at each shape (fp32,
+    atol = rtol = 1e-5: channel sums in another order). The record sums ms,
+    plain ms and bound over the PWC shapes, i.e. one forward's five calls."""
+    import torch
+
+    from macvo_tpu_torch.ops import correlation
+
+    gen = torch.Generator().manual_seed(1)
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    bound_by = set()          # of the PWC shapes
+    for i, shape in enumerate(shapes):
+        f1, f2 = (torch.randn(shape, generator=gen).to(device) for _ in range(2))
+        out = correlation.local_correlation(f1, f2)
+        ref = correlation.local_correlation_torch(f1, f2)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        err = (out - ref).abs()
+        ok = bool((err <= 1e-5 + 1e-5 * ref.abs()).all()) and tuple(out.shape) == (shape[0], 81, *shape[2:])
+        rec = {"shape_bchw": list(shape), "max_abs_err": float(err.max()), "atol": 1e-5, "rtol": 1e-5}
+        rec["bound_ms"], rec["bound_by"] = correlation_bound_ms(*shape)
+        if timed:
+            rec["ms"] = cuda_time_ms(lambda: correlation.local_correlation(f1, f2), 50)
+            rec["plain_ms"] = cuda_time_ms(lambda: correlation.local_correlation_torch(f1, f2), 10)
+        emit("kernel", "check", kernel="local_correlation", agrees=ok, **rec)
+        if not ok:
+            raise AssertionError(f"local_correlation: kernel disagrees with its plain version ({rec})")
+        total["max_abs_err"] = max(total["max_abs_err"], rec["max_abs_err"])
+        if i < len(CORR_SHAPES):
+            bound_by.add(rec["bound_by"])
+            for key in ("ms", "plain_ms", "bound_ms"):
+                total[key] += rec.get(key, 0.0)
+    total["bound_by"] = " and ".join(sorted(bound_by))
+    if not timed:
+        total["ms"] = total["plain_ms"] = None
+    return {"local_correlation": total}
+
+
+def phase_tartanvo_networks(device, frame0, frame1) -> dict:
+    """PWCFlowNet and StereoCovNet at 128x192 on a crop of a real pair, and
+    VOFlowRes at 112x160 on a seeded stack: the card (kernel, cuDNN with TF32
+    off) against the CPU (plain versions). Bound: max |card - CPU| <= 1e-4 of
+    the output's magnitude (at least 1): fp32 sums in other orders."""
+    import torch
+
+    from macvo_tpu_torch.models.flowformer import load_flax_checkpoint
+    from macvo_tpu_torch.models.tartanvo import PWCFlowNet, StereoCovNet, VOFlowRes, normalize_image
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    crop = (slice(None), slice(256, 384), slice(224, 416))
+    l0, l1, r0 = (normalize_image(x[crop]).contiguous() for x in
+                  (frame0.stereo.imageL, frame1.stereo.imageL, frame0.stereo.imageR))
+    stack = torch.randn((1, 112, 160, 5), generator=torch.Generator().manual_seed(2)) * 0.5
+    errs = {}
+    for name, cls, ckpt, inputs in (("pwc", PWCFlowNet, "TartanVO_flow", (l0, l1)),
+                                    ("stereo", StereoCovNet, "TartanVO_stereo", (l0, r0)),
+                                    ("posenet", VOFlowRes, "TartanVO_posenet", (stack,))):
+        model = cls().eval()
+        load_flax_checkpoint(model, ROOT / "model" / f"{ckpt}.npz")
+        with torch.inference_mode():
+            ref = model(*inputs)
+            model.to(device)
+            out = model(*(x.to(device) for x in inputs))
+        ref, out = (ref if isinstance(ref, tuple) else (ref,)), (out if isinstance(out, tuple) else (out,))
+        for i, (o, r) in enumerate(zip(out, ref)):
+            key = f"{name}[{i}]" if len(ref) > 1 else name
+            err, scale = float((o.cpu() - r).abs().max()), max(1.0, float(r.abs().max()))
+            errs[key] = {"max_abs_err": err, "bound": 1e-4 * scale, "shape": list(o.shape),
+                         "finite": bool(torch.isfinite(o).all())}
+    ok = all(v["max_abs_err"] <= v["bound"] and v["finite"] for v in errs.values())
+    emit("network", "check", model="tartanvo", agrees=ok, errors=errs)
+    if not ok:
+        raise AssertionError(f"network: TartanVO nets, card vs CPU differ: {errs}")
+    return errs
+
+
 def phase_network(device, frame0, frame1) -> dict:
     """FlowFormerCov (fp32, shipped checkpoint) on a 64x96 crop of a real pair:
     the card (kernel, cuDNN/cuBLAS with TF32 off) against the CPU (plain
@@ -186,10 +289,9 @@ def run_odometry(cfg, seq, device, phase: str) -> dict:
 
     from macvo_tpu_torch.data import DevicePrefetcher
     from macvo_tpu_torch.evaluation import evaluate_all
-    from macvo_tpu_torch.odometry import MACVO
+    from macvo_tpu_torch.odometry import build_odometry
 
-    MACVO.is_valid_config(cfg.Odometry)
-    system = MACVO.from_config(cfg, device=device)
+    system = build_odometry(cfg, device=device)
     stamps = []
 
     def on_frame(frame, _odom):
@@ -231,7 +333,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from macvo_tpu_torch.data.datasets.tartanair import TartanAirV2
-    from macvo_tpu_torch.ops import latent_attn
+    from macvo_tpu_torch.ops import correlation, latent_attn
     from macvo_tpu_torch.ops._build import build
     from macvo_tpu_torch.utils.config import build_dynamic_config, load_config
 
@@ -250,14 +352,21 @@ def main() -> int:
 
     # 2. build
     if on_card:
+        from concurrent.futures import ThreadPoolExecutor
+
         emit("build", "start")
-        built = build("latent_attn")
-        emit("build", "end", library=str(built.path.relative_to(ROOT)), nvcc_s=round(built.seconds, 3),
-             ptxas=built.ptxas.splitlines())
+        start = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:     # one nvcc process a source, started together
+            built = list(pool.map(build, ("latent_attn", "correlation")))
+        emit("build", "end", wall_s=round(time.perf_counter() - start, 3), libraries=[
+            {"library": str(b.path.relative_to(ROOT)), "nvcc_s": round(b.seconds, 3), "ptxas": b.ptxas.splitlines()}
+            for b in built])
 
     # 3. kernel
     emit("kernel", "start")
     kernel_recs = phase_kernel(device, 12800 if on_card else 64, 100 if on_card else 4, timed=on_card)
+    corr_shapes = CORR_SHAPES + [CORR_ODD] if on_card else [(1, 8, 12, 16), (1, 16, 5, 7)]
+    kernel_recs.update(phase_correlation(device, corr_shapes, timed=on_card))
     emit("kernel", "end")
 
     clip = load_config(ROOT / CLIP)[0].Sequence.args
@@ -269,6 +378,7 @@ def main() -> int:
     # 4. network: the card against the CPU on a small crop of a real pair
     emit("network", "start")
     phase_network(device, learned_seq[0], learned_seq[1])
+    phase_tartanvo_networks(device, learned_seq[0], learned_seq[1])
     emit("network", "end")
 
     # 5. GT frontend through the whole backend
@@ -318,12 +428,32 @@ def main() -> int:
             raise AssertionError(f"{phase}: latent attention kernel launched {launches[kname]} times "
                                  f"over {rec['frames']} frames")
 
-    # 8. kernels
+    # 8. TartanVO baseline: PWC (5 correlation launches a pair) + stereo + pose net
+    emit("tartanvo", "start")
+    cfg = load_config(ROOT / "configs/experiment/baseline/TartanVO.yaml")[0]
+    for node, ckpt in ((cfg.Odometry.match, "flow"), (cfg.Odometry.depth, "stereo"),
+                       (cfg.Odometry.tartanvo, "posenet")):
+        node.args.weight = str(ROOT / "model" / f"TartanVO_{ckpt}.npz")
+    correlation.local_correlation.launches = 0
+    rec = run_odometry(cfg, learned_seq, device, "tartanvo")
+    launches["local_correlation"] = correlation.local_correlation.launches
+    rec["correlation_launches"] = launches["local_correlation"]
+    emit("tartanvo", "end", jax_cpu_record=TARTANVO_JAX_CPU, rel_bound=TARTANVO_REL, **rec)
+    if not args.size:
+        for key, metric in (("ATE_m", "ATE"), ("RTE_m_per_frame", "RTE"), ("ROE_deg_per_frame", "ROE")):
+            ref = TARTANVO_JAX_CPU[metric]
+            if abs(rec[key] - ref) > TARTANVO_REL * ref:
+                raise AssertionError(f"tartanvo: {metric} {rec[key]} not within {TARTANVO_REL:.0%} of {ref}")
+    if on_card and launches["local_correlation"] != 5 * (rec["frames"] - 1):
+        raise AssertionError(f"tartanvo: correlation kernel launched {launches['local_correlation']} times "
+                             f"over {rec['frames']} frames, not 5 a pair")
+
+    # 9. kernels
     kernels = []
     for name, rec in kernel_recs.items():
+        source, replaces = KERNEL_SOURCES[name.split("[")[0]]
         kernels.append({
-            "name": name, "route": "cuda", "source": "macvo_tpu_torch/csrc/latent_attn.cu",
-            "replaces": "macvo_tpu/ops/latent_attn.py:36", "launches": launches[name],
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
             "bound_ms": rec.get("bound_ms"), "bound_by": rec.get("bound_by"), "library_ms": None,
         })

@@ -3,9 +3,13 @@
 Usage:
     python -m macvo_tpu_torch --odom configs/experiment/macvo/MACVO_Performant.yaml \\
                               --data configs/sequence/TartanAirv2_RealAsset.yaml
+    python -m macvo_tpu_torch --odom configs/experiment/baseline/TartanVO.yaml \\
+                              --data configs/sequence/TartanAirv2_RealAsset.yaml
 
-Runs the odometry over the sequence on ``--device`` (``cuda`` by default),
-writes ``poses.npy`` / ``ref_poses.npy`` / ``tensor_map.npz`` under
+Builds the odometry class the config's ``Odometry.type`` names (``MACVO``,
+the default, or the ``TartanVO`` baseline), runs it over the sequence on
+``--device`` (``cuda`` by default), writes ``poses.npy`` /
+``ref_poses.npy`` / ``tensor_map.npz`` under
 ``<resultRoot>/<name>_<time>/`` and, unless ``--noeval``, prints ATE, RTE,
 ROE and RPE.
 """
@@ -50,7 +54,7 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
 
     from .data import DevicePrefetcher
-    from .odometry import MACVO
+    from .odometry import build_odometry
     from .utils.config import load_config
     from .utils.device import resolve_device
 
@@ -61,8 +65,7 @@ def main(argv=None) -> None:
     name = getattr(odom_cfg.Odometry, "name", "MACVO")
     out_dir = Path(args.resultRoot) / f"{name}_{time.strftime('%m_%d_%H%M%S')}"
 
-    MACVO.is_valid_config(odom_cfg.Odometry)
-    system = MACVO.from_config(odom_cfg, device=device)
+    system = build_odometry(odom_cfg, device=device)
     print(f"Running {name} on {seq} ({device}) -> {out_dir}", flush=True)
     system.receive_frames(DevicePrefetcher(seq, device), saveto=out_dir)
 

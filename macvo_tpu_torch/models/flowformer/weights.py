@@ -9,6 +9,10 @@ torch_convert.py``:
 * Dense ``kernel (in, out)``        -> Linear ``weight (out, in)``
 * Conv ``kernel (kh, kw, in, out)`` -> Conv2d ``weight (out, in, kh, kw)``
   (the depthwise PEG conv ``(3, 3, 1, C)`` becomes ``(C, 1, 3, 3)`` by the same rule)
+* ConvTranspose ``kernel (kh, kw, in, out)`` -> ConvTranspose2d ``weight (in, out, kh, kw)``,
+  flipped in both spatial axes: flax does not flip a transposed conv's kernel,
+  torch does. Which paths are transposed convs the model says
+  (:func:`transposed_convs`): the array alone cannot tell them apart.
 * LayerNorm ``scale``               -> ``weight``
 * ``bias``, ``latents`` and ``gamma`` keep their layout.
 
@@ -21,14 +25,17 @@ written.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Mapping
+from typing import Collection, Mapping
 
 import numpy as np
 import torch
 
 
-def flax_to_torch(npz_arrays: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    """flax path -> array mapping  =>  torch state_dict (one entry per array)."""
+def flax_to_torch(npz_arrays: Mapping[str, np.ndarray],
+                  transposed: Collection[str] = ()) -> dict[str, torch.Tensor]:
+    """flax path -> array mapping  =>  torch state_dict (one entry per array).
+    ``transposed`` names the modules (torch dotted paths) that are transposed
+    convolutions."""
     out: dict[str, torch.Tensor] = {}
     for path, arr in npz_arrays.items():
         parts = path.split("/")
@@ -37,6 +44,8 @@ def flax_to_torch(npz_arrays: Mapping[str, np.ndarray]) -> dict[str, torch.Tenso
         if leaf == "kernel":
             if a.ndim == 2:
                 a = a.T
+            elif a.ndim == 4 and ".".join(parts[:-1]) in transposed:
+                a = a[::-1, ::-1].transpose(2, 3, 0, 1)
             elif a.ndim == 4:
                 a = a.transpose(3, 2, 0, 1)
             else:
@@ -49,8 +58,13 @@ def flax_to_torch(npz_arrays: Mapping[str, np.ndarray]) -> dict[str, torch.Tenso
         key = ".".join(parts[:-1] + [leaf])
         if key in out:
             raise ValueError(f"{path}: two flax paths map to torch key {key!r}")
-        out[key] = torch.tensor(np.asarray(a, dtype=np.float32))
+        out[key] = torch.tensor(np.ascontiguousarray(a, dtype=np.float32))
     return out
+
+
+def transposed_convs(module: torch.nn.Module) -> set[str]:
+    """Dotted paths of the transposed convolutions of ``module``."""
+    return {name for name, m in module.named_modules() if isinstance(m, torch.nn.ConvTranspose2d)}
 
 
 def load_flax_checkpoint(module: torch.nn.Module, npz_path: str | Path) -> None:
@@ -58,7 +72,7 @@ def load_flax_checkpoint(module: torch.nn.Module, npz_path: str | Path) -> None:
     once and every parameter is set, each with its shape checked."""
     with np.load(npz_path) as data:
         arrays = {k: data[k] for k in data.files}
-    load_state(module, flax_to_torch(arrays))
+    load_state(module, flax_to_torch(arrays, transposed_convs(module)))
 
 
 def load_state(module: torch.nn.Module, state: Mapping[str, torch.Tensor]) -> None:

@@ -13,6 +13,7 @@ from .frontend import (
     retrieve_pixels,
 )
 from .frontend_network import FlowFormerCovFrontend
+from .frontend_tartanvo import TartanMotionNet, TartanVODepth, TartanVOMatcher
 from .keyframe import AllKeyframe, IKeyframeSelector
 from .keypoint import (
     CovAwareSelector_NoDepth,
@@ -31,5 +32,6 @@ __all__ = [
     "GridSelector", "ICovariance2to3", "IFrontend", "IKeyframeSelector", "IKeypointSelector",
     "IMapProcessor", "IMatcher", "IMotionModel", "IObservationFilter", "IStereoDepth",
     "MappingPointSelector", "MatchCovariance", "MatchOutput", "MotionInterpolate", "RandomSelector",
-    "SimpleDepthFilter", "StaticMotionModel", "retrieve_pixels",
+    "SimpleDepthFilter", "StaticMotionModel", "TartanMotionNet", "TartanVODepth", "TartanVOMatcher",
+    "retrieve_pixels",
 ]

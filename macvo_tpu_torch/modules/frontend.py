@@ -53,9 +53,10 @@ def retrieve_pixels(pixel_uv: torch.Tensor, scalar_map: Optional[torch.Tensor]) 
 
 
 class IStereoDepth(RegisteredConfigTestable, register=False):
-    """``estimate(frame: StereoData) -> DepthOutput``."""
+    """``estimate(frame: StereoData) -> DepthOutput``. Frames arrive on the
+    module's device; ``device`` places any model."""
 
-    def __init__(self, config: SimpleNamespace) -> None:
+    def __init__(self, config: SimpleNamespace, device="cuda") -> None:
         self.config = config
 
     @property
@@ -67,9 +68,10 @@ class IStereoDepth(RegisteredConfigTestable, register=False):
 
 
 class IMatcher(RegisteredConfigTestable, register=False):
-    """``estimate(frame_t1, frame_t2) -> MatchOutput`` (left-image flow t1->t2)."""
+    """``estimate(frame_t1, frame_t2) -> MatchOutput`` (left-image flow t1->t2).
+    Frames arrive on the module's device; ``device`` places any model."""
 
-    def __init__(self, config: SimpleNamespace) -> None:
+    def __init__(self, config: SimpleNamespace, device="cuda") -> None:
         self.config = config
 
     @property
@@ -138,8 +140,8 @@ class FrontendCompose(IFrontend):
 
     def __init__(self, config: SimpleNamespace, device="cuda") -> None:
         super().__init__(config, device)
-        self.depth = IStereoDepth.instantiate(config.depth.type, config.depth.args)
-        self.match = IMatcher.instantiate(config.match.type, config.match.args)
+        self.depth = IStereoDepth.instantiate(config.depth.type, config.depth.args, device=device)
+        self.match = IMatcher.instantiate(config.match.type, config.match.args, device=device)
 
     @property
     def provide_cov(self) -> tuple[bool, bool]:

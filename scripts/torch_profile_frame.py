@@ -2,15 +2,17 @@
 
     python scripts/torch_profile_frame.py [--odom CONFIG ...] [--out DIR]
 
-For each odometry config (default: MACVO_Performant and MACVO_Fast) on the
-real 640x640 clip: warms up on the first frames, then
+For each odometry config (default: MACVO_Performant, MACVO_Fast and the
+TartanVO baseline) on the real 640x640 clip: warms up on the first frames, then
 
 * times each stage of one steady-state frame with CUDA events (median of
-  ``--reps`` repeats): Twins features of the two new images, context of the
-  left image, all-pairs correlation, the cost perceiver (its input stage is
-  the latent-attention kernel on the folded weights, also timed alone), the
-  12-step decoder, the keypoint pipeline, the dense-mapping pipeline and the
-  device-chained solve;
+  ``--reps`` repeats). MAC-VO: Twins features of the two new images, context
+  of the left image, all-pairs correlation, the cost perceiver (its input
+  stage is the latent-attention kernel on the folded weights, also timed
+  alone), the 12-step decoder, the keypoint pipeline, the dense-mapping
+  pipeline and the device-chained solve. TartanVO: the matcher (PWC net
+  alone, and its five local-correlation kernel calls alone), the stereo
+  depth (net alone), the pose-net input and the pose net;
 * runs ``--profiled`` whole frames plain (wall time per frame, with a sync
   after each), then ``--profiled`` more under ``torch.profiler``: device time
   per frame (summed kernel and copy time; one stream, so little overlap), the
@@ -49,6 +51,39 @@ def _timed(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def profile_tartanvo(cfg, frames, reps: int, profiled: int) -> tuple[object, int, dict]:
+    """Per-stage times of the TartanVO baseline on its last steady pair."""
+    from macvo_tpu_torch.models.tartanvo import normalize_image
+    from macvo_tpu_torch.modules.frontend_tartanvo import crop_margins
+    from macvo_tpu_torch.odometry import TartanVO
+    from macvo_tpu_torch.ops.correlation import local_correlation
+
+    system = TartanVO.from_config(cfg, device=torch.device("cuda"))
+    warm = len(frames) - 2 * profiled
+    for f in frames[:warm]:
+        system.run(f)
+    torch.cuda.synchronize()
+    f0, f1 = system.prev_frame.stereo, frames[warm].stereo
+    match, depth, motion = system.match_estimator, system.depth_estimator, system.tartanvo
+    mh, mw, h64, w64 = crop_margins(f1.height, f1.width)
+    crop = (slice(None), slice(mh, mh + h64), slice(mw, mw + w64))
+    i1, i2, r2 = (normalize_image(x[crop]) for x in (f0.imageL, f1.imageL, f1.imageR))
+    stages = {}
+    with torch.inference_mode():
+        feats = [f.split(1, dim=0) for f in match.net.pyramid(torch.cat([i1, i2]).permute(0, 3, 1, 2).contiguous())]
+        pairs = [(feats[lvl][0].contiguous(), feats[lvl][1].contiguous()) for lvl in range(5, 0, -1)]
+        stages["matcher_total"] = _timed(lambda: match.estimate(f0, f1), reps)
+        stages["pwc_net"] = _timed(lambda: match.net(i1, i2), reps)
+        stages["correlation_kernel_5_calls"] = _timed(lambda: [local_correlation(a, b) for a, b in pairs], reps)
+        stages["depth_total"] = _timed(lambda: depth.estimate(f1), reps)
+        stages["stereo_net"] = _timed(lambda: depth.net(i2, r2), reps)
+        flow, dep = match.estimate(f0, f1).flow, depth.estimate(f1).depth
+        stack = motion.motion_input(frames[warm], flow, dep)
+        stages["pose_input"] = _timed(lambda: motion.motion_input(frames[warm], flow, dep), reps)
+        stages["pose_net"] = _timed(lambda: motion.net(stack), reps)
+    return system, warm, stages
+
+
 def profile_config(cfg_path: Path, reps: int, profiled: int) -> dict:
     from macvo_tpu_torch.data import DevicePrefetcher
     from macvo_tpu_torch.data.datasets.tartanair import TartanAirV2
@@ -60,9 +95,15 @@ def profile_config(cfg_path: Path, reps: int, profiled: int) -> dict:
 
     device = torch.device("cuda")
     cfg = load_config(cfg_path)[0]
-    cfg.Odometry.frontend.args.weight = str(ROOT / "model/MACVO_FrontendCov.npz")
     seq = TartanAirV2({"root": str(CLIP), "compressed": True, "gtFlow": False, "gtDepth": False, "gtPose": True})
     frames = list(DevicePrefetcher(seq, device))
+    if getattr(cfg.Odometry, "type", "MACVO") == "TartanVO":
+        for node, ckpt in ((cfg.Odometry.match, "flow"), (cfg.Odometry.depth, "stereo"),
+                           (cfg.Odometry.tartanvo, "posenet")):
+            node.args.weight = str(ROOT / "model" / f"TartanVO_{ckpt}.npz")
+        system, warm, stages = profile_tartanvo(cfg, frames, reps, profiled)
+        return _profile_frames(cfg_path, system, frames, warm, profiled, stages)
+    cfg.Odometry.frontend.args.weight = str(ROOT / "model/MACVO_FrontendCov.npz")
     system = MACVO.from_config(cfg, device=device)
     warm = len(frames) - 2 * profiled
     for f in frames[:warm]:
@@ -128,7 +169,10 @@ def profile_config(cfg_path: Path, reps: int, profiled: int) -> dict:
             packed, pose, cam, baseline, system.Optimizer.context["graph_type"]), reps)
     # the stage timings re-ran estimate_pair: restore the cache the next frame expects
     fe._feat_cache = (f0.stereo, f_l1, c_l1)
+    return _profile_frames(cfg_path, system, frames, warm, profiled, stages)
 
+
+def _profile_frames(cfg_path: Path, system, frames, warm: int, profiled: int, stages: dict) -> dict:
     # -- whole frames: plain for the wall time, then under the profiler -----
     torch.cuda.synchronize()
     walls = []
@@ -162,7 +206,8 @@ def profile_config(cfg_path: Path, reps: int, profiled: int) -> dict:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="per-stage and per-kernel time of a frame on the card")
     parser.add_argument("--odom", nargs="*", default=[
-        "configs/experiment/macvo/MACVO_Performant.yaml", "configs/experiment/macvo/MACVO_Fast.yaml"])
+        "configs/experiment/macvo/MACVO_Performant.yaml", "configs/experiment/macvo/MACVO_Fast.yaml",
+        "configs/experiment/baseline/TartanVO.yaml"])
     parser.add_argument("--reps", type=int, default=7)
     parser.add_argument("--profiled", type=int, default=2,
                         help="frames timed plain, then as many under the profiler, at the end of the clip")
