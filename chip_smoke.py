@@ -10,8 +10,13 @@ Phases, each announced by a flushed, timestamped JSON line:
               ``macvo_tpu_torch/csrc``, one process a source, all at once
               (registers / shared memory from ptxas).
 3. kernel   - each kernel against its plain PyTorch version on the card at the
-              main paths' shapes, with its time, bound and the plain version's
-              time: the latent attention at N = 12,800 pixels, T = 100 tokens
+              main paths' shapes, with its time, bound, bound share (bound /
+              time) and the plain version's time. A kernel's ``ms`` times 50
+              calls made from Python between two CUDA events, host cost
+              included, as the main path pays it (and as PRs 4-5 recorded it);
+              ``device_ms`` is device time (the same 50 calls in one CUDA
+              graph, replayed between CUDA events) and ``device_bound_share``
+              its bound share: the latent attention at N = 12,800 pixels, T = 100 tokens
               (bf16 and fp32), through both entry points (folded weights, as
               the main path calls it, and the JAX signature); the local
               correlation at the five shapes of a 640x640 PWC forward and an
@@ -26,7 +31,7 @@ Phases, each announced by a flushed, timestamped JSON line:
               640x640 with 12 decoder steps, all 10 frames; ATE <= 0.05 m.
 7. fast     - MACVO_Fast (bf16 autocast), same clip; ATE <= 0.08 m.
 8. tartanvo - the TartanVO baseline (configs/experiment/baseline/TartanVO.yaml,
-              fp32), same clip; ATE/RTE/ROE within 2 % of the JAX CPU record
+              fp32), same clip; ATE/RTE/ROE within 0.1 % of the JAX CPU record
               and 5 correlation launches a frame pair.
 9. kernels  - one JSON line listing every ported kernel.
 
@@ -52,7 +57,7 @@ GT_BOUNDS = {"ATE": 0.002, "RTE": 0.0025, "ROE": 0.045}       # tests/test_real_
 LEARNED_ATE = {"performant": 0.05, "fast": 0.08}
 # TartanVO baseline, JAX package on the CPU, 10 frames at 640x640 (README's baseline row); an accuracy record
 TARTANVO_JAX_CPU = {"ATE": 1.613477, "RTE": 0.360225, "ROE": 3.962729}
-TARTANVO_REL = 0.02
+TARTANVO_REL = 0.001
 # (B, C, H, W) of the correlation calls of one 640x640 PWC forward, coarse levels last; then an odd shape
 CORR_SHAPES = [(1, 32, 160, 160), (1, 64, 80, 80), (1, 96, 40, 40), (1, 128, 20, 20), (1, 196, 10, 10)]
 CORR_ODD = (2, 48, 37, 53)
@@ -79,6 +84,29 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_time_ms(fn, iters: int) -> float:
+    """Device time of one call: ``iters`` calls captured in one CUDA graph and
+    replayed between two CUDA events, so the host's launch cost (Python, ctypes)
+    drops out. ``cuda_time_ms`` keeps it in."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -131,11 +159,14 @@ def phase_kernel(device, n: int, t: int, timed: bool) -> dict:
         rec = {"max_abs_err": float(errs["folded"].max()),
                "max_abs_err_jax_signature": float(errs["jax_signature"].max()),
                "atol": atol, "rtol": rtol, "shape": [n, t, 64]}
+        rec["bound_ms"], rec["bound_by"] = latent_attn_bound_ms(n, t, dtype)
         if timed:
             rec["ms"] = cuda_time_ms(lambda: latent_attn.latent_attn_folded(tokens, *folded), 50)
+            rec["device_ms"] = graph_time_ms(lambda: latent_attn.latent_attn_folded(tokens, *folded), 50)
             rec["jax_signature_ms"] = cuda_time_ms(lambda: latent_attn.latent_cross_attention(*args), 50)
             rec["plain_ms"] = cuda_time_ms(lambda: latent_attn.latent_cross_attention_torch(*args), 10)
-        rec["bound_ms"], rec["bound_by"] = latent_attn_bound_ms(n, t, dtype)
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+            rec["device_bound_share"] = rec["bound_ms"] / rec["device_ms"]
         emit("kernel", "check", kernel=name, agrees=ok, **rec)
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain version ({rec})")
@@ -161,7 +192,7 @@ def phase_correlation(device, shapes, timed: bool) -> dict:
     from macvo_tpu_torch.ops import correlation
 
     gen = torch.Generator().manual_seed(1)
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    total = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
     bound_by = set()          # of the PWC shapes
     for i, shape in enumerate(shapes):
         f1, f2 = (torch.randn(shape, generator=gen).to(device) for _ in range(2))
@@ -174,19 +205,26 @@ def phase_correlation(device, shapes, timed: bool) -> dict:
         rec = {"shape_bchw": list(shape), "max_abs_err": float(err.max()), "atol": 1e-5, "rtol": 1e-5}
         rec["bound_ms"], rec["bound_by"] = correlation_bound_ms(*shape)
         if timed:
+            rec["cluster"] = correlation.cluster_size(*shape, torch.cuda.get_device_properties(device).multi_processor_count)
             rec["ms"] = cuda_time_ms(lambda: correlation.local_correlation(f1, f2), 50)
+            rec["device_ms"] = graph_time_ms(lambda: correlation.local_correlation(f1, f2), 50)
             rec["plain_ms"] = cuda_time_ms(lambda: correlation.local_correlation_torch(f1, f2), 10)
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+            rec["device_bound_share"] = rec["bound_ms"] / rec["device_ms"]
         emit("kernel", "check", kernel="local_correlation", agrees=ok, **rec)
         if not ok:
             raise AssertionError(f"local_correlation: kernel disagrees with its plain version ({rec})")
         total["max_abs_err"] = max(total["max_abs_err"], rec["max_abs_err"])
         if i < len(CORR_SHAPES):
             bound_by.add(rec["bound_by"])
-            for key in ("ms", "plain_ms", "bound_ms"):
+            for key in ("ms", "device_ms", "plain_ms", "bound_ms"):
                 total[key] += rec.get(key, 0.0)
     total["bound_by"] = " and ".join(sorted(bound_by))
-    if not timed:
-        total["ms"] = total["plain_ms"] = None
+    if timed:
+        total["bound_share"] = total["bound_ms"] / total["ms"]
+        total["device_bound_share"] = total["bound_ms"] / total["device_ms"]
+    else:
+        total["ms"] = total["device_ms"] = total["plain_ms"] = None
     return {"local_correlation": total}
 
 
@@ -456,6 +494,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
             "bound_ms": rec.get("bound_ms"), "bound_by": rec.get("bound_by"), "library_ms": None,
+            "bound_share": rec.get("bound_share"), "device_ms": rec.get("device_ms"),
+            "device_bound_share": rec.get("device_bound_share"),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     if on_card:

@@ -105,11 +105,14 @@ def _refold_after_load(module: "CostPerceiverEncoder", _incompatible_keys) -> No
 class CostPerceiverEncoder(nn.Module):
     """Cost maps -> latent cost memory.
 
-    The input stage (input projection + latent cross-attention) always runs as
-    the folded function of ``ops/latent_attn.py``: the kernel on CUDA tensors,
-    its plain version on CPU tensors. Its weights are folded once, by
-    :meth:`fold_input_stage`, into the non-persistent buffers ``fold_m``,
-    ``fold_wvp`` and ``fold_c``, which follow the module's ``.to(device)``."""
+    The input stage (input projection + latent cross-attention) has two forms.
+    For inference it runs as the folded function of ``ops/latent_attn.py``: the
+    kernel on CUDA tensors, its plain version on CPU tensors. Its weights are
+    folded once, by :meth:`fold_input_stage`, into the non-persistent buffers
+    ``fold_m``, ``fold_wvp`` and ``fold_c``, which follow the module's
+    ``.to(device)``. When a gradient is wanted (grad mode on and a parameter
+    or the cost maps require grad) it runs unfused, :meth:`input_stage`, the
+    form the JAX package trains through (``fused_input=False``)."""
 
     def __init__(self, cost_latent_input_dim: int = 64, cost_latent_token_num: int = 8,
                  cost_latent_dim: int = 128, encoder_depth: int = 3, patch_size: int = 8,
@@ -173,13 +176,22 @@ class CostPerceiverEncoder(nn.Module):
         for buf, value in zip((self.fold_m, self.fold_wvp, self.fold_c), folded):
             buf.copy_(value)
 
+    def input_stage(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Unfused input stage (``macvo_tpu/models/flowformer/encoder.py:235-240``):
+        input_proj, k/v, softmax over the tokens, proj, plus the latents."""
+        latents = self.latents.expand(tokens.shape[0], -1, -1)
+        return latents.to(tokens.dtype) + self.input_attn(latents, self.input_proj(tokens))
+
     def forward(self, cost_maps: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, n1 = cost_maps.shape[:2]
         h1, w1 = context.shape[1], context.shape[2]
         if n1 != h1 * w1:
             raise ValueError(f"cost maps hold {n1} source pixels, context is {h1}x{w1}")
         tokens = self.tokenize(cost_maps)
-        x = latent_attn_folded(tokens, self.fold_m, self.fold_wvp, self.fold_c)
+        if torch.is_grad_enabled() and (tokens.requires_grad or any(p.requires_grad for p in self.parameters())):
+            x = self.input_stage(tokens)
+        else:
+            x = latent_attn_folded(tokens, self.fold_m, self.fold_wvp, self.fold_c)
         for i in range(self.encoder_depth):
             x = getattr(self, f"intra{i}")(x)
             grid = x.reshape(b, h1, w1, self.token_num, self.latent_dim)

@@ -140,12 +140,14 @@ class TartanMotionNet(IMotionModel):
     """Learned motion prior: VOFlowRes on (flow, normalized inverse depth,
     intrinsics layer) resized to 112x160; its se3 output, scaled by
     ``POSE_NORM``, is chained onto the previous pose. The network runs on
-    ``device``; the pose (7,) is chained in fp32 on the host."""
+    ``device``, and so does the chain: the pose (7,) is fp32 on ``device``,
+    whatever device the pose given to :meth:`update` came from."""
 
     def __init__(self, config: SimpleNamespace, device: str | torch.device = "cuda") -> None:
         super().__init__(config)
         self.device = resolve_device(device)
         self.net = load_network(VOFlowRes(), config.weight, self.device)
+        self.pose_norm = torch.tensor(POSE_NORM, device=self.device)
         self.prev_pose: Optional[torch.Tensor] = None
 
     def motion_input(self, frame: StereoFrame, flow: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
@@ -165,17 +167,17 @@ class TartanMotionNet(IMotionModel):
     @torch.inference_mode()
     def predict(self, frame: StereoFrame, flow, depth) -> torch.Tensor:
         if self.prev_pose is None:
-            self.prev_pose = se3.identity()
+            self.prev_pose = se3.identity(device=self.device)
             return self.prev_pose
         if flow is None or depth is None:
             raise ValueError("TartanMotionNet needs flow and depth after the first frame")
-        twist = self.net(self.motion_input(frame, flow, depth))[0].cpu() * torch.tensor(POSE_NORM)
+        twist = self.net(self.motion_input(frame, flow, depth))[0] * self.pose_norm
         # The network emits [trans, rot]; se3 twists are [rho, phi]: the same order.
         self.prev_pose = se3.mul(self.prev_pose, se3.exp(twist))
         return self.prev_pose
 
     def update(self, pose) -> None:
-        self.prev_pose = torch.as_tensor(pose, dtype=torch.float32).reshape(7)
+        self.prev_pose = torch.as_tensor(pose, dtype=torch.float32, device=self.device).reshape(7)
 
     @classmethod
     def is_valid_config(cls, config) -> None:

@@ -64,9 +64,9 @@ class TartanVO(IOdometry, ConfigTestable):
         if self.prev_frame is not None:
             flow_map = self.match_estimator.estimate(self.prev_frame.stereo, frame.stereo).flow
         est_depth = self.depth_estimator.estimate(frame.stereo)
-        est_pose = self.tartanvo.predict(frame, flow_map, est_depth.depth).numpy()
-        self._push(frame, est_pose, need_interp=False)
-        self.tartanvo.update(est_pose)
+        pose = self.tartanvo.predict(frame, flow_map, est_depth.depth)
+        self._push(frame, pose.cpu().numpy(), need_interp=False)
+        self.tartanvo.update(pose)
         self.prev_frame = frame
 
     def get_map(self) -> VisualMap:

@@ -3,7 +3,9 @@
 ``receive_frames`` runs every frame, keeps the GT poses, and at the end
 (also after an error, which it then re-raises) terminates the system and,
 given an output directory, writes ``poses.npy`` (time + body-frame SE3),
-``ref_poses.npy`` and ``tensor_map.npz``.
+``ref_poses.npy`` and ``tensor_map.npz``. With ``profile`` set, frame 2 runs
+under ``torch.profiler`` and its trace goes to ``trace/frame2.json`` in the
+output directory (Chrome trace format; card activity where there is a card).
 """
 
 from __future__ import annotations
@@ -12,9 +14,11 @@ from pathlib import Path
 from typing import Callable, Generic, Iterable, Optional, TypeVar
 
 import numpy as np
+import torch
 
 from ..data.frame import StereoFrame
 from ..geometry import se3_np
+from ..utils.logging import Logger
 from ..worldmap import VisualMap
 
 T_Frame = TypeVar("T_Frame", bound=StereoFrame)
@@ -37,9 +41,14 @@ class IOdometry(Generic[T_Frame]):
 
     def receive_frames(self, sequence: Iterable[T_Frame], saveto: Optional[Path] = None,
                        on_frame_finished: Optional[Callable[[T_Frame, "IOdometry"], None]] = None) -> None:
+        if self.profile and saveto is None:
+            Logger.warning("profile: true needs an output directory for its trace; none is written")
         try:
-            for frame in sequence:
-                self.run(frame)
+            for i, frame in enumerate(sequence):
+                if self.profile and i == 2 and saveto is not None:
+                    self.run_traced(frame, Path(saveto) / "trace")
+                else:
+                    self.run(frame)
                 if frame.gt_pose is not None:
                     self.gt_poses.append(np.asarray(frame.gt_pose).reshape(7))
                 if on_frame_finished is not None:
@@ -48,6 +57,19 @@ class IOdometry(Generic[T_Frame]):
             self.terminate()
             if saveto is not None:
                 self.save_results(Path(saveto))
+
+    def run_traced(self, frame: T_Frame, trace_dir: Path) -> None:
+        """``run(frame)`` under ``torch.profiler``; the trace goes to
+        ``trace_dir/frame2.json``."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        with torch.profiler.profile(activities=activities) as prof:
+            self.run(frame)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace_dir / "frame2.json"))
 
     def save_results(self, saveto: Path) -> None:
         saveto.mkdir(parents=True, exist_ok=True)

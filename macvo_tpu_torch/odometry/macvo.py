@@ -17,6 +17,7 @@ frontend) the solve is assembled from the host map when the sync is consumed.
 
 from __future__ import annotations
 
+import inspect
 from collections import deque
 from types import SimpleNamespace
 from typing import Optional
@@ -103,9 +104,13 @@ class MACVO(IOdometry[StereoFrame], ConfigTestable):
     def from_config(cls, cfg: SimpleNamespace, device: str | torch.device = "cuda") -> "MACVO":
         device = resolve_device(device)
         o = cfg.Odometry
+        # A learned motion model (TartanMotionNet) runs on the odometry's device;
+        # StaticMotionModel takes no device.
+        motion_cls = IMotionModel.get_class(o.motion.type)
+        motion_kw = {"device": device} if "device" in inspect.signature(motion_cls).parameters else {}
         return cls(
             frontend=IFrontend.instantiate(o.frontend.type, o.frontend.args, device=device),
-            motion_model=IMotionModel.instantiate(o.motion.type, o.motion.args),
+            motion_model=IMotionModel.instantiate(o.motion.type, o.motion.args, **motion_kw),
             kp_selector=IKeypointSelector.instantiate(o.keypoint.type, o.keypoint.args),
             map_selector=IKeypointSelector.instantiate(o.mappoint.type, o.mappoint.args),
             obs_filter=IObservationFilter.instantiate(o.outlier.type, o.outlier.args),

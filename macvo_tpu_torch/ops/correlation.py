@@ -18,6 +18,7 @@ other than 4, or an input that requires grad: the kernel is forward-only).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +36,24 @@ def local_correlation_torch(f1: torch.Tensor, f2: torch.Tensor, radius: int = 4)
     f2p = F.pad(f2, (radius, radius, radius, radius))
     outs = [(f1 * f2p[:, :, dy:dy + h, dx:dx + w]).sum(dim=1) for dy in range(k) for dx in range(k)]
     return torch.stack(outs, dim=1) / c
+
+
+def cluster_size(b: int, c: int, h: int, w: int, sms: int) -> int:
+    """The channel split (thread-block cluster size) the kernel's launcher picks
+    for a (B, C, H, W) call on a card of ``sms`` SMs, as the built library
+    reports it (builds the kernel)."""
+    fn = build("correlation").lib.correlation_cluster_size
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    return fn(b, c, h, w, sms)
+
+
+@functools.cache
+def _kernel():
+    fn = build("correlation").lib.correlation_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _launch(f1: torch.Tensor, f2: torch.Tensor, radius: int) -> torch.Tensor:
@@ -55,12 +74,10 @@ def _launch(f1: torch.Tensor, f2: torch.Tensor, radius: int) -> torch.Tensor:
     b, c, h, w = f1.shape
     k = 2 * radius + 1
     out = torch.empty((b, k * k, h, w), dtype=torch.float32, device=f1.device)
-    fn = build("correlation").lib.correlation_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(f1.device).cuda_stream
+    fn = _kernel()
     with torch.cuda.device(f1.device):
-        err = fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, c, h, w, radius, stream)
+        err = fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, c, h, w, radius,
+                 torch.cuda.current_stream(f1.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"correlation kernel launch failed: cudaError {err}")
     local_correlation.launches += 1

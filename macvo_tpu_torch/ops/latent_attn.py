@@ -16,19 +16,21 @@ points launch the kernel on CUDA tensors (each launch counts in
 ``latent_cross_attention.launches``) and run a plain version on CPU tensors
 (:func:`latent_cross_attention_torch`, :func:`latent_attn_folded_torch`).
 There is no fallback between the two: a CUDA tensor the kernel cannot take
-raises.
+raises, and so does one that requires grad (the kernel is forward-only; the
+perceiver trains through its unfused input stage).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ._build import build
 
 D_IN, N_Q, D_OUT = 64, 8, 128
-MAX_TOKENS = 512   # per-warp shared memory of the kernel grows with T
+MAX_TOKENS = 512   # the kernel's ring holds at least one pixel's (T, 64) tile
 
 
 def latent_cross_attention_torch(tokens, wk, bk, wv, bv, q, wp, bias):
@@ -67,6 +69,14 @@ def latent_attn_folded_torch(tokens, m, wvp, c):
     return (torch.einsum("nqt,ntd->nqd", a, tok) @ wvp.float() + c.float()).to(tokens.dtype)
 
 
+@functools.cache
+def _kernel():
+    fn = build("latent_attn").lib.latent_attn_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch(tokens: torch.Tensor, m: torch.Tensor, wvp: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     n, t, d_in = tokens.shape
     if tokens.dtype not in (torch.float32, torch.bfloat16):
@@ -84,10 +94,11 @@ def _launch(tokens: torch.Tensor, m: torch.Tensor, wvp: torch.Tensor, c: torch.T
             raise TypeError(f"{name} must be float32, got {x.dtype}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+        if x.requires_grad:
+            raise RuntimeError(f"latent_cross_attention kernel is forward-only, but {name} requires grad: "
+                               "run it under torch.no_grad() or torch.inference_mode()")
     out = torch.empty((n, N_Q, D_OUT), dtype=tokens.dtype, device=tokens.device)
-    fn = build("latent_attn").lib.latent_attn_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _kernel()
     stream = torch.cuda.current_stream(tokens.device).cuda_stream
     with torch.cuda.device(tokens.device):
         err = fn(tokens.data_ptr(), m.data_ptr(), wvp.data_ptr(), c.data_ptr(), out.data_ptr(),

@@ -1,6 +1,6 @@
 """Where a frame's time goes on the card.
 
-    python scripts/torch_profile_frame.py [--odom CONFIG ...] [--out DIR]
+    python scripts/torch_profile_frame.py [--odom CONFIG ...] [--out DIR] [--tree DIR]
 
 For each odometry config (default: MACVO_Performant, MACVO_Fast and the
 TartanVO baseline) on the real 640x640 clip: warms up on the first frames, then
@@ -18,6 +18,11 @@ TartanVO baseline) on the real 640x640 clip: warms up on the first frames, then
   per frame (summed kernel and copy time; one stream, so little overlap), the
   device's busy share (that over the plain wall time) and the kernels with
   the most device time.
+
+``--tree`` imports ``macvo_tpu_torch`` from another checkout (an earlier
+commit unpacked with ``git archive`` into a directory ``.gitignore`` lists),
+with the weights and the clip still read from this one, so that two versions
+of the package can be profiled in turns in one call on one card.
 
 Prints one JSON object per config and writes it to ``<out>/profile_<name>.json``.
 Needs a card.
@@ -81,6 +86,9 @@ def profile_tartanvo(cfg, frames, reps: int, profiled: int) -> tuple[object, int
         stack = motion.motion_input(frames[warm], flow, dep)
         stages["pose_input"] = _timed(lambda: motion.motion_input(frames[warm], flow, dep), reps)
         stages["pose_net"] = _timed(lambda: motion.net(stack), reps)
+        prev_pose = motion.prev_pose
+        stages["motion_predict"] = _timed(lambda: motion.predict(frames[warm], flow, dep), reps)
+        motion.prev_pose = prev_pose
     return system, warm, stages
 
 
@@ -212,13 +220,18 @@ def main(argv=None) -> None:
     parser.add_argument("--profiled", type=int, default=2,
                         help="frames timed plain, then as many under the profiler, at the end of the clip")
     parser.add_argument("--out", type=str, default="chiprun_out")
+    parser.add_argument("--tree", type=str, default=None,
+                        help="import macvo_tpu_torch from this checkout instead of this one")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame needs an NVIDIA card")
+    if args.tree:
+        sys.path.insert(0, str(Path(args.tree).resolve()))
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     for odom in args.odom:
         rec = profile_config(ROOT / odom, args.reps, args.profiled)
+        rec["package"] = str(Path(sys.modules["macvo_tpu_torch"].__file__).parent.relative_to(ROOT))
         (out / f"profile_{Path(odom).stem}.json").write_text(json.dumps(rec, indent=1))
         print(json.dumps(rec), flush=True)
 

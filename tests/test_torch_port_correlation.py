@@ -19,7 +19,8 @@ from macvo_tpu.ops.correlation import local_correlation as j_local_correlation
 from macvo_tpu.ops.correlation import local_correlation_xla as j_local_correlation_xla
 from macvo_tpu_torch.ops import correlation
 
-SHAPES = [(1, 10, 10, 196, 4), (2, 13, 17, 32, 4), (1, 40, 40, 96, 4), (1, 11, 14, 24, 2)]
+SHAPES = [(1, 10, 10, 196, 4), (2, 13, 17, 32, 4), (1, 40, 40, 96, 4), (1, 11, 14, 24, 2),
+          (1, 20, 20, 128, 4), (2, 37, 53, 48, 4)]
 
 
 def _inputs(b, h, w, c, seed):

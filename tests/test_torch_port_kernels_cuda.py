@@ -31,7 +31,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,t", [(12800, 100), (37, 1), (5, 333)])
+@pytest.mark.parametrize("n,t", [(12800, 100), (37, 1), (5, 333), (3, 512), (1001, 100), (131, 17)])
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 1e-4), (torch.bfloat16, 1e-2, 1.6e-2)])
 def test_latent_attn_kernel_matches_plain(cuda_device, n, t, dtype, atol, rtol):
     """Kernel vs plain version; (12800, 100) is the 640x640 shape. fp32: the
@@ -68,6 +68,26 @@ def test_latent_attn_folded_entry_launches_the_kernel(cuda_device, dtype, atol, 
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 1e-4), (torch.bfloat16, 1e-2, 1.6e-2)])
+def test_latent_attn_kernel_agrees_in_every_run(cuda_device, dtype, atol, rtol):
+    """The folded entry 40 times at the 640x640 shape (N = 12,800, T = 100):
+    every run agrees with the plain version (tolerances as above) and is
+    bit-identical to the first. A pixel's sums run in a fixed order whatever
+    warp takes it, so any difference between runs is a race between the warps
+    that share a pixel or a ring slot."""
+    args = [torch.from_numpy(a).to(cuda_device) for a in _inputs(12800, 100, seed=11)]
+    args[0] = args[0].to(dtype)
+    folded = latent_attn.fold_weights(*args[1:])
+    ref = latent_attn.latent_cross_attention_torch(*args).float()
+    first = latent_attn.latent_attn_folded(args[0], *folded)
+    for _ in range(39):
+        out = latent_attn.latent_attn_folded(args[0], *folded)
+        torch.testing.assert_close(out.float(), ref, atol=atol, rtol=rtol)
+        assert torch.equal(out, first)
+    torch.testing.assert_close(first.float(), ref, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
 def test_latent_attn_kernel_rejects_what_it_cannot_take(cuda_device):
     args = [torch.from_numpy(a).to(cuda_device) for a in _inputs(8, 4)]
     with pytest.raises(ValueError):
@@ -81,9 +101,36 @@ def test_latent_attn_kernel_rejects_what_it_cannot_take(cuda_device):
         latent_attn.latent_cross_attention(args[0].half(), *args[1:])
 
 
+@pytest.mark.cuda
+def test_latent_attn_kernel_rejects_inputs_that_require_grad(cuda_device):
+    """The kernel is forward-only: both entries raise on a tensor that requires
+    grad (tokens or a weight) and launch nothing; the perceiver trains through
+    its unfused input stage instead."""
+    args = [torch.from_numpy(a).to(cuda_device) for a in _inputs(8, 4)]
+    folded = latent_attn.fold_weights(*args[1:])
+    before = latent_attn.latent_cross_attention.launches
+    with pytest.raises(RuntimeError, match="grad"):
+        latent_attn.latent_cross_attention(args[0].clone().requires_grad_(), *args[1:])
+    with pytest.raises(RuntimeError, match="grad"):
+        latent_attn.latent_cross_attention(args[0], args[1].clone().requires_grad_(), *args[2:])
+    with pytest.raises(RuntimeError, match="grad"):
+        latent_attn.latent_attn_folded(args[0].clone().requires_grad_(), *folded)
+    with pytest.raises(RuntimeError, match="grad"):
+        latent_attn.latent_attn_folded(args[0], folded[0].clone().requires_grad_(), *folded[1:])
+    assert latent_attn.latent_cross_attention.launches == before
+    with torch.no_grad():
+        latent_attn.latent_attn_folded(args[0], *folded)
+    assert latent_attn.latent_cross_attention.launches == before + 1
+
+
 # The 640x640 PWC forward calls the correlation at these (B, C, H, W), plus an odd shape.
 CORR_SHAPES = [(1, 32, 160, 160), (1, 64, 80, 80), (1, 96, 40, 40), (1, 128, 20, 20), (1, 196, 10, 10),
                (2, 48, 37, 53)]
+# Shapes for each channel split (cluster size) the wrapper picks on a 132-SM H100, with W
+# not a multiple of the 4-pixel run or the 32-pixel tile, C not a multiple of the
+# 8-channel chunk, and B = 2.
+CORR_SPLITS = [((1, 20, 150, 150), 1), ((1, 20, 96, 150), 2), ((1, 44, 70, 75), 4), ((2, 60, 21, 45), 4),
+               ((1, 100, 9, 13), 8), ((2, 3, 5, 7), 1)]
 
 
 def _corr_inputs(shape, device, seed=3):
@@ -103,6 +150,32 @@ def test_correlation_kernel_matches_plain(cuda_device, shape):
     assert correlation.local_correlation.launches == before + 1
     assert out.shape == (shape[0], 81, shape[2], shape[3])
     torch.testing.assert_close(out, correlation.local_correlation_torch(f1, f2), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,split", CORR_SPLITS)
+def test_correlation_kernel_matches_plain_at_each_split(cuda_device, shape, split):
+    """Each channel split the wrapper chooses, at shapes off every multiple the
+    kernel works in: one launch, the plain version's result (1e-5)."""
+    assert correlation.cluster_size(*shape, sms=132) == split
+    f1, f2 = _corr_inputs(shape, cuda_device)
+    before = correlation.local_correlation.launches
+    out = correlation.local_correlation(f1, f2)
+    torch.cuda.synchronize()
+    assert correlation.local_correlation.launches == before + 1
+    torch.testing.assert_close(out, correlation.local_correlation_torch(f1, f2), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,split", [((1, 32, 160, 160), 1), ((1, 64, 80, 80), 4), ((1, 96, 40, 40), 8),
+                                         ((1, 128, 20, 20), 8), ((1, 196, 10, 10), 8), ((2, 48, 37, 53), 4),
+                                         ((1, 12, 10, 10), 1), ((64, 196, 10, 10), 1)])
+def test_channel_split_fills_a_132_sm_card(cuda_device, shape, split):
+    """The launcher's channel split (cluster size), as the built library reports
+    it, for the five shapes of a 640x640 PWC forward on a 132-SM H100, the odd
+    shape, too few channels to split (12 < 2 chunks) and a batch large enough to
+    fill the card alone."""
+    assert correlation.cluster_size(*shape, sms=132) == split
 
 
 @pytest.mark.cuda
@@ -147,3 +220,47 @@ def test_pwc_forward_launches_the_correlation_five_times(cuda_device):
         torch.cuda.synchronize()
     assert correlation.local_correlation.launches == before + 5
     torch.testing.assert_close(out.cpu(), ref, atol=1e-4 * float(ref.abs().max()), rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_macvo_with_tartan_motion_net_runs_on_the_card(cuda_device):
+    """MAC-VO with the TartanMotionNet motion model (Paper_Reproduce.yaml's
+    block) and the Performant frontend at 2 decoder steps, 3 frames of a
+    192x192 crop of the real clip, on the card: the pose net and the pose
+    chain stay on the card (the device-chained backend hands it card poses),
+    and every pose is finite."""
+    import dataclasses
+    from pathlib import Path
+
+    from macvo_tpu_torch.data import DevicePrefetcher
+    from macvo_tpu_torch.data.datasets.tartanair import TartanAirV2
+    from macvo_tpu_torch.modules.frontend_tartanvo import TartanMotionNet
+    from macvo_tpu_torch.odometry import MACVO
+    from macvo_tpu_torch.utils.config import load_config
+
+    root = Path(__file__).parent.parent
+    cfg = load_config(root / "configs/experiment/macvo/MACVO_Performant.yaml")[0]
+    cfg.Odometry.frontend.args.weight = str(root / "model/MACVO_FrontendCov.npz")
+    cfg.Odometry.frontend.args.decoder_depth = 2
+    cfg.Odometry.args.num_point = 64
+    cfg.Odometry.args.num_map_point = 128
+    cfg.Odometry.motion = load_config(root / "configs/experiment/macvo/Paper_Reproduce.yaml")[0].Odometry.motion
+    cfg.Odometry.motion.args.weight = str(root / "model/TartanVO_posenet.npz")
+    seq = TartanAirV2({"root": str(root / "assets/test_sequence/TartanAir2_abs_P000"), "compressed": True,
+                       "gtFlow": False, "gtDepth": False, "gtPose": True})
+
+    def crop(f, size=192):
+        s = f.stereo
+        y0, x0 = (s.height - size) // 2, (s.width - size) // 2
+        K = s.K.copy()
+        K[:, 0, 2] -= x0
+        K[:, 1, 2] -= y0
+        cut = (lambda x: x[:, y0:y0 + size, x0:x0 + size].contiguous())
+        return dataclasses.replace(f, stereo=dataclasses.replace(s, K=K, imageL=cut(s.imageL), imageR=cut(s.imageR)))
+
+    odom = MACVO.from_config(cfg, device=cuda_device)
+    assert isinstance(odom.MotionEstimator, TartanMotionNet) and odom.MotionEstimator.device.type == "cuda"
+    odom.receive_frames(DevicePrefetcher([crop(seq[i]) for i in range(3)], cuda_device))
+    poses = odom.graph.frames.data["pose"][:3]
+    assert len(odom.graph.frames) == 3 and np.isfinite(poses).all()
+    assert odom.MotionEstimator.prev_pose.device.type == "cuda"
