@@ -33,7 +33,21 @@ Phases, each announced by a flushed, timestamped JSON line:
 8. tartanvo - the TartanVO baseline (configs/experiment/baseline/TartanVO.yaml,
               fp32), same clip; ATE/RTE/ROE within 0.1 % of the JAX CPU record
               and 5 correlation launches a frame pair.
-9. kernels  - one JSON line listing every ported kernel.
+9. synthetic - the README's quickstart, configs/experiment/macvo/MACVO_Synthetic.yaml
+              on its own Synthetic_Demo sequence (320x240, 10 frames, GT
+              frontend, rendered on the host before the run); ATE/RTE/ROE
+              within the bounds of tests/test_e2e.py.
+              No kernel is on this path: both counters must stay at 0.
+10. paper   - configs/experiment/macvo/Paper_Reproduce.yaml (CovAwareSelector,
+              TartanMotionNet motion model, float64 disp-graph TwoFrame_PGO,
+              LikelyFrontOfCamFilter) on the real clip; ATE <= 0.05 m and one
+              latent-attention launch a frame.
+11. ablation - the ablation configs that reach every covariance module
+              (TartanAirv2_CovKP: NoCovariance + CovAwareSelector; _CovDiag:
+              Modifier_Diagonalize; _ScaleNorm: Modifier_Normalize) on the
+              real clip: finite poses, ATE/RTE/ROE printed, one latent-attention
+              launch a frame each.
+12. kernels - one JSON line listing every ported kernel.
 
 Each learned run resets the kernels' launch counters right before it and
 reads them right after: every kernel of the path must have launched. Any
@@ -53,8 +67,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CLIP = "configs/sequence/TartanAirv2_RealAsset.yaml"
-GT_BOUNDS = {"ATE": 0.002, "RTE": 0.0025, "ROE": 0.045}       # tests/test_real_asset.py:33-35
-LEARNED_ATE = {"performant": 0.05, "fast": 0.08}
+GT_BOUNDS = {"ATE": 0.002, "RTE": 0.0025, "ROE": 0.045}   # tests/test_real_asset.py:33-35, tests/test_e2e.py:19-21
+LEARNED_ATE = {"performant": 0.05, "fast": 0.08, "paper": 0.05}
+ABLATIONS = ("TartanAirv2_CovKP", "TartanAirv2_CovDiag", "TartanAirv2_ScaleNorm")
 # TartanVO baseline, JAX package on the CPU, 10 frames at 640x640 (README's baseline row); an accuracy record
 TARTANVO_JAX_CPU = {"ATE": 1.613477, "RTE": 0.360225, "ROE": 3.962729}
 TARTANVO_REL = 0.001
@@ -352,9 +367,16 @@ def run_odometry(cfg, seq, device, phase: str) -> dict:
            "steady_frame_ms_median": float(np.median(frame_ms[2:])) if n > 3 else None}
     if device.type == "cuda":
         rec["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
-    if not all(np.isfinite([rec["ATE_m"], rec["RTE_m_per_frame"], rec["ROE_deg_per_frame"]])):
-        raise AssertionError(f"{phase}: non-finite trajectory metrics {rec}")
+    if not np.isfinite(est).all() or not all(np.isfinite([rec["ATE_m"], rec["RTE_m_per_frame"],
+                                                           rec["ROE_deg_per_frame"]])):
+        raise AssertionError(f"{phase}: non-finite poses or trajectory metrics {rec}")
     return rec
+
+
+def check_bounds(phase: str, rec: dict, bounds: dict) -> None:
+    for key, metric in (("ATE_m", "ATE"), ("RTE_m_per_frame", "RTE"), ("ROE_deg_per_frame", "ROE")):
+        if rec[key] > bounds[metric]:
+            raise AssertionError(f"{phase}: {metric} {rec[key]} > bound {bounds[metric]}")
 
 
 def main() -> int:
@@ -370,6 +392,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from macvo_tpu_torch.data import SequenceBase
     from macvo_tpu_torch.data.datasets.tartanair import TartanAirV2
     from macvo_tpu_torch.ops import correlation, latent_attn
     from macvo_tpu_torch.ops._build import build
@@ -444,9 +467,7 @@ def main() -> int:
     rec = run_odometry(gt_cfg, gt_seq, device, "gt")
     emit("gt", "end", bounds=GT_BOUNDS, **rec)
     if not args.size:
-        for key, metric in (("ATE_m", "ATE"), ("RTE_m_per_frame", "RTE"), ("ROE_deg_per_frame", "ROE")):
-            if rec[key] > GT_BOUNDS[metric]:
-                raise AssertionError(f"gt: {metric} {rec[key]} > bound {GT_BOUNDS[metric]}")
+        check_bounds("gt", rec, GT_BOUNDS)
 
     # 6./7. learned frontend, Performant (fp32) then Fast (bf16)
     launches = {}
@@ -486,7 +507,44 @@ def main() -> int:
         raise AssertionError(f"tartanvo: correlation kernel launched {launches['local_correlation']} times "
                              f"over {rec['frames']} frames, not 5 a pair")
 
-    # 9. kernels
+    # 9. the synthetic quickstart: GT frontend, no kernel on the path
+    emit("synthetic", "start")
+    cfg = load_config(ROOT / "configs/experiment/macvo/MACVO_Synthetic.yaml")[0]
+    synth_seq = SequenceBase.from_config(cfg.Data.Sequence)
+    start = time.perf_counter()
+    synth_frames = [synth_seq[i] for i in range(len(synth_seq))]     # rendered before the run, not inside it
+    render_s = time.perf_counter() - start
+    latent_attn.latent_cross_attention.launches = correlation.local_correlation.launches = 0
+    rec = run_odometry(cfg, synth_frames, device, "synthetic")
+    rec["render_s"] = render_s
+    rec["kernel_launches"] = {"latent_cross_attention": latent_attn.latent_cross_attention.launches,
+                              "local_correlation": correlation.local_correlation.launches}
+    emit("synthetic", "end", bounds=GT_BOUNDS, note="GT frontend: no kernel on this path", **rec)
+    check_bounds("synthetic", rec, GT_BOUNDS)
+    if any(rec["kernel_launches"].values()):
+        raise AssertionError(f"synthetic: a kernel launched on a path that has none: {rec['kernel_launches']}")
+
+    # 10./11. Paper_Reproduce and three ablation configs on the real clip
+    by_phase = {"performant": launches["latent_cross_attention[fp32]"]}
+    runs = [("paper", "Paper_Reproduce.yaml")] + [("ablation", f"ablation/{a}.yaml") for a in ABLATIONS]
+    for phase, cfg_file in runs:
+        variant = Path(cfg_file).stem
+        emit(phase, "start", config=variant)
+        cfg = load_config(ROOT / "configs/experiment/macvo" / cfg_file)[0]
+        cfg.Odometry.frontend.args.weight = str(ROOT / "model/MACVO_FrontendCov.npz")
+        if cfg.Odometry.motion.type == "TartanMotionNet":
+            cfg.Odometry.motion.args.weight = str(ROOT / "model/TartanVO_posenet.npz")
+        latent_attn.latent_cross_attention.launches = 0
+        rec = run_odometry(cfg, learned_seq, device, phase)
+        rec["latent_attn_launches"] = by_phase[f"{phase}[{variant}]"] = latent_attn.latent_cross_attention.launches
+        emit(phase, "end", config=variant, ate_bound_m=LEARNED_ATE.get(phase), **rec)
+        if not args.size and phase in LEARNED_ATE and rec["ATE_m"] > LEARNED_ATE[phase]:
+            raise AssertionError(f"{phase}: ATE {rec['ATE_m']} m > {LEARNED_ATE[phase]} m")
+        if on_card and rec["latent_attn_launches"] != rec["frames"]:
+            raise AssertionError(f"{phase} ({variant}): latent attention kernel launched "
+                                 f"{rec['latent_attn_launches']} times over {rec['frames']} frames, not one a frame")
+
+    # 12. kernels
     kernels = []
     for name, rec in kernel_recs.items():
         source, replaces = KERNEL_SOURCES[name.split("[")[0]]
@@ -497,6 +555,8 @@ def main() -> int:
             "bound_share": rec.get("bound_share"), "device_ms": rec.get("device_ms"),
             "device_bound_share": rec.get("device_bound_share"),
         })
+        if name == "latent_cross_attention[fp32]":
+            kernels[-1]["launches_by_phase"] = by_phase
     print(json.dumps({"kernels": kernels}), flush=True)
     if on_card:
         print(smi, flush=True)

@@ -221,3 +221,13 @@ class Local_TwoFrame_PGO(TwoFrame_PGO):
         anchor = torch.as_tensor(graph_data.anchor, dtype=out.pose.dtype, device=out.pose.device)
         out.pose = se3.normalize(se3.mul(anchor, out.pose))
         return context, out
+
+
+class Empty_TwoFrame_PGO(TwoFrame_PGO):
+    """No-op optimizer: the pose is the motion model's prediction, row ``cap``
+    columns 0:7 of the packed problem."""
+
+    def _optimize(self, context: Any, graph_data: GraphInput) -> tuple[Any, GraphOutput]:
+        cap = graph_data.packed.shape[0] - 1
+        pose = torch.as_tensor(graph_data.packed[cap, 0:7], dtype=torch.float32, device=self.device)
+        return context, GraphOutput(graph_data.frame_idx, graph_data.from_idx, pose)

@@ -1,6 +1,7 @@
-"""TartanAir v2 sequence loader (port of ``TartanAirV2`` in ``macvo_tpu/data/datasets/tartanair.py``).
+"""TartanAir sequence loaders (port of ``TartanAir`` and ``TartanAirV2`` in
+``macvo_tpu/data/datasets/tartanair.py``).
 
-Layout: ``<root>/image_{l,r}cam_front/*.png``, compressed depth
+v2 layout: ``<root>/image_{l,r}cam_front/*.png``, compressed depth
 (float32 packed in rgba png) ``depth_lcam_front/``, 16-bit flow png
 ``flow_lcam_front/``, ``pose_lcam_front.txt`` rows ``tx ty tz qx qy qz qw``
 (NED world, left camera). v2 intrinsics: fx=fy=320, cx=cy=320, 640x640,
@@ -137,6 +138,17 @@ class _TartanAirBase(SequenceBase[StereoFrame], register=False):
             "gtDepth": lambda b: isinstance(b, bool),
             "gtPose": lambda b: isinstance(b, bool),
         })
+
+
+class TartanAir(_TartanAirBase):
+    """TartanAir v1 layout (image_left/right pngs, depth_left npy, flow npy,
+    pose_left.txt), 640x480 with fx=fy=320, cx=320, cy=240, baseline 0.25 m."""
+
+    K = np.array([[320.0, 0.0, 320.0], [0.0, 320.0, 240.0], [0.0, 0.0, 1.0]])
+    BASELINE = 0.25
+    LEFT_DIR, RIGHT_DIR = "image_left", "image_right"
+    DEPTH_DIR, FLOW_DIR = "depth_left", "flow"
+    POSE_FILE = "pose_left.txt"
 
 
 class TartanAirV2(_TartanAirBase):

@@ -1,4 +1,4 @@
-"""Anisotropic Gaussian patch kernels (port of ``macvo_tpu/geometry/gaussian.py``)."""
+"""Anisotropic Gaussian patch kernels and mixture statistics (port of ``macvo_tpu/geometry/gaussian.py``)."""
 
 from __future__ import annotations
 
@@ -31,3 +31,17 @@ def gaussian_full_kernels(cov_2x2: torch.Tensor, kernel_size: int) -> torch.Tens
     z = torch.exp(-0.5 * quad)
     total = torch.sum(z, dim=(-1, -2), keepdim=True)
     return z / torch.clamp(total, min=1e-12)
+
+
+def gaussian_mixture_mean_var(means: torch.Tensor, variances: torch.Tensor, probs: torch.Tensor,
+                              prob_threshold: float = 1e-3) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean and variance of B Gaussian mixtures of N components, (B,N) inputs.
+
+    Components below ``prob_threshold`` are dropped and the rest renormalized;
+    the variance E[v + m^2] - mean^2 is halved, the reference's damping, so
+    covariance magnitudes match."""
+    probs = torch.where(probs < prob_threshold, torch.zeros_like(probs), probs)
+    probs = probs / torch.clamp(probs.sum(dim=1, keepdim=True), min=1e-12)
+    mean = torch.sum(means * probs, dim=1)
+    var = torch.sum((variances + means * means) * probs, dim=1) - mean * mean
+    return mean, var / 2.0

@@ -62,3 +62,13 @@ def interpolate_pose(poses: np.ndarray, ts: np.ndarray, ts_ev: np.ndarray) -> tu
     interp = np.where(before[..., None], poses[0], interp)
     interp = np.where(after[..., None], poses[-1], interp)
     return interp, before | after
+
+
+def cumulative_motions(init_pose: np.ndarray, motions: np.ndarray) -> np.ndarray:
+    """Compose a motion sequence (M,7) into a trajectory (M+1,7):
+    pose_i = pose_{i-1} @ m_i, the quaternion renormalized at every step
+    (``se3_np.mul`` does)."""
+    traj = [init_pose]
+    for m in motions:
+        traj.append(se3_np.mul(traj[-1], m))
+    return np.stack(traj)

@@ -40,6 +40,17 @@ class IObservationFilter(RegisteredConfigTestable, register=False):
         return torch.ones((first.shape[0],), dtype=torch.bool, device=first.device)
 
 
+class IdentityFilter(IObservationFilter):
+    """Keep everything."""
+
+    def filter(self, values: Obs) -> torch.Tensor:
+        return self._ones(values)
+
+    @classmethod
+    def is_valid_config(cls, config) -> None:
+        return
+
+
 class FilterCompose(IObservationFilter):
     """AND-chain of child filters."""
 
@@ -107,3 +118,24 @@ class SimpleDepthFilter(IObservationFilter):
             "min_depth": lambda d: isinstance(d, (int, float)) and d > 0.0,
             "max_depth": lambda d: (d == "auto") or (isinstance(d, (int, float)) and d > 0.0),
         })
+
+
+class LikelyFrontOfCamFilter(IObservationFilter):
+    """Keep observations likely in front of the camera, d - 2 sigma_d > 0 in
+    both frames. When any depth covariance is the -1 placeholder (no depth
+    covariance) it keeps everything; that test stays on the device."""
+
+    @property
+    def required_keys(self) -> set[str]:
+        return {"pixel1_d", "pixel1_d_cov", "pixel2_d", "pixel2_d_cov"}
+
+    def filter(self, values: Obs) -> torch.Tensor:
+        c1, c2 = values["pixel1_d_cov"][..., 0], values["pixel2_d_cov"][..., 0]
+        d1, d2 = values["pixel1_d"][..., 0], values["pixel2_d"][..., 0]
+        keep = ((d1 - 2.0 * torch.sqrt(torch.clamp(c1, min=0.0))) > 0.0) & (
+            (d2 - 2.0 * torch.sqrt(torch.clamp(c2, min=0.0))) > 0.0)
+        return keep | (c1 == -1.0).any() | (c2 == -1.0).any()
+
+    @classmethod
+    def is_valid_config(cls, config) -> None:
+        return

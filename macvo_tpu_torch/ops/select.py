@@ -33,6 +33,19 @@ def local_min_nms(quality: torch.Tensor, kernel_size: int) -> torch.Tensor:
     return (quality == eroded) & ~torch.isnan(quality)
 
 
+def local_max_nms(score: torch.Tensor, kernel_size: int) -> torch.Tensor:
+    """True where ``score`` is the local maximum (higher = better) and not NaN."""
+    return (score == max_pool2d(score, kernel_size)) & ~torch.isnan(score)
+
+
+def laplacian_magnitude(image: torch.Tensor) -> torch.Tensor:
+    """|Laplacian| of an (H,W,3) image, the 4-neighbour kernel applied per
+    channel with zero padding and summed over RGB -> (H,W)."""
+    x = F.pad(image, (0, 0, 1, 1, 1, 1))
+    lap = x[:-2, 1:-1] + x[2:, 1:-1] + x[1:-1, :-2] + x[1:-1, 2:] - 4.0 * x[1:-1, 1:-1]
+    return lap.sum(dim=-1).abs()
+
+
 def masked_median(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """numpy-style median (mean of the two middle values) of ``values`` where
     ``mask`` holds and the value is not NaN; NaN when nothing is selected.

@@ -88,7 +88,8 @@ def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
 
 def test_chip_smoke_rehearses_every_phase_on_the_cpu():
     """The script's CPU rehearsal (hidden ``--device cpu --size``): every phase
-    runs on a 96x96 crop, the kernels line is printed, and the run still
+    runs, on a 96x96 crop of the real clip (the synthetic one at its own
+    320x240), the kernels line is printed, and the run still
     exits non-zero without the final ``ok`` line."""
     env = _env()
     env["OMP_NUM_THREADS"] = "2"
@@ -97,7 +98,8 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu():
     assert out.returncode == 3, out.stderr[-2000:]
     ends = {json.loads(line)["phase"] for line in out.stdout.splitlines()
             if line.startswith("{\"t_s\"") and json.loads(line)["event"] == "end"}
-    assert ends == {"device", "kernel", "network", "gt", "performant", "fast", "tartanvo"}
+    assert ends == {"device", "kernel", "network", "gt", "performant", "fast", "tartanvo", "synthetic", "paper",
+                    "ablation"}
     kernels = [json.loads(line) for line in out.stdout.splitlines() if line.startswith('{"kernels"')]
     assert len(kernels) == 1 and {k["name"] for k in kernels[0]["kernels"]} == {
         "latent_cross_attention[bf16]", "latent_cross_attention[fp32]", "local_correlation"}

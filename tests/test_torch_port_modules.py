@@ -88,9 +88,46 @@ def test_masked_median_matches_jax(n_true):
     np.testing.assert_allclose(ours, ref, equal_nan=True)
 
 
+def _match_covariance_f64(depth, kp, dcov, fcov, fx, fy, cx, cy, kernel_size, match_cov_default,
+                          min_flow_cov, min_depth_cov, has_flow_cov, has_depth_cov):
+    """float64 numpy oracle of MatchCovariance, written from its definition."""
+    n = kp.shape[0]
+    fc = np.zeros((n, 3))
+    fc[:, :2] = match_cov_default
+    if has_flow_cov:
+        fc = fcov.astype(np.float64)
+        fc[:, :2] = np.maximum(fc[:, :2], min_flow_cov ** 2)
+    su, sv, suv = fc[:, 0], fc[:, 1], fc[:, 2]
+    det = su * sv - suv * suv
+    half = kernel_size // 2
+    g = np.arange(-half, half + 1, dtype=np.float64)
+    gx, gy = g[:, None], g[None, :]                          # kernel[n, x, y]: x is the u-offset
+    quad = (sv[:, None, None] * gx * gx - 2 * suv[:, None, None] * gx * gy + su[:, None, None] * gy * gy)
+    z = np.exp(-0.5 * quad / det[:, None, None])
+    z /= z.sum(axis=(1, 2), keepdims=True)
+    h, w = depth.shape
+    u_idx = np.clip(kp[:, 0].astype(np.int64)[:, None] + g.astype(np.int64), 0, w - 1)
+    v_idx = np.clip(kp[:, 1].astype(np.int64)[:, None] + g.astype(np.int64), 0, h - 1)
+    patches = depth.astype(np.float64)[v_idx[:, None, :], u_idx[:, :, None]]
+    mean = (z * patches).sum(axis=(1, 2))
+    var = (z * (patches - mean[:, None, None]) ** 2).sum(axis=(1, 2))
+    if has_depth_cov and not has_flow_cov:
+        var = dcov.astype(np.float64)
+    sdd = np.maximum(var, min_depth_cov)
+    du, dv, d2 = kp[:, 0] - cx, kp[:, 1] - cy, mean * mean
+    s_xx = (du * du * sdd + d2 * su + su * sdd) / fx ** 2
+    s_yy = (dv * dv * sdd + d2 * sv + sv * sdd) / fy ** 2
+    s_xy = (du * dv * sdd + (d2 + sdd) * suv) / (fx * fy)
+    s_xz, s_yz = sdd * du / fx, sdd * dv / fy
+    return np.stack([np.stack([sdd, s_xz, s_yz], -1), np.stack([s_xz, s_xx, s_xy], -1),
+                     np.stack([s_yz, s_xy, s_yy], -1)], -2)
+
+
 @pytest.mark.parametrize("has_flow_cov,has_depth_cov", [(True, True), (True, False), (False, False), (False, True)])
 def test_match_covariance_matches_jax(has_flow_cov, has_depth_cov):
-    """Same kp_uv into both; fp32 sums over 31x31 patches: 1e-5 relative."""
+    """Same kp_uv into both; fp32 sums over 31x31 patches: 1e-5 relative.
+    Each side is first held against a float64 oracle, so a drift names the
+    side that moved."""
     rng = np.random.default_rng(4)
     depth = rng.uniform(1, 20, (120, 160)).astype(np.float32)
     kp = np.stack([rng.integers(0, 160, 50), rng.integers(0, 120, 50)], -1).astype(np.float32)
@@ -102,6 +139,9 @@ def test_match_covariance_matches_jax(has_flow_cov, has_depth_cov):
     ref = j_match_cov(jnp.asarray(depth), jnp.asarray(kp), jnp.asarray(dcov), jnp.asarray(fcov), *cam, *args)
     ours = match_covariance(torch.from_numpy(depth), torch.from_numpy(kp), torch.from_numpy(dcov),
                             torch.from_numpy(fcov), *cam, *args)
+    oracle = _match_covariance_f64(depth, kp, dcov, fcov, *cam, *args)
+    np.testing.assert_allclose(ours.numpy(), oracle, rtol=1e-5, atol=1e-7, err_msg="port against the f64 oracle")
+    np.testing.assert_allclose(np.asarray(ref), oracle, rtol=1e-5, atol=1e-7, err_msg="JAX against the f64 oracle")
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-7)
 
 
