@@ -47,7 +47,40 @@ Phases, each announced by a flushed, timestamped JSON line:
               Modifier_Diagonalize; _ScaleNorm: Modifier_Normalize) on the
               real clip: finite poses, ATE/RTE/ROE printed, one latent-attention
               launch a frame each.
-12. kernels - one JSON line listing every ported kernel.
+12. train   - the training path (macvo_tpu_torch.train), five checks:
+              cov: configs/train/FlowFormerCov_synth_cov.yaml as shipped (bf16,
+                batch 6, 240x320, 12 decoder steps) from the shipped checkpoint,
+                3 steps through the runner's functions, batches drawn before the
+                timed steps: finite losses, every parameter outside the
+                covariance branch bit-identical, one bf16 latent-attention
+                launch a step (counted by token type, counts set to 0 before
+                each step); then the runner itself, ``train.run.main``, for 3
+                steps and its final eval, whose npz the odometry runs on.
+              flow: FlowFormerCov_synth.yaml (flow mode), 2 steps from the same
+                checkpoint with no kernel launch; then the moved weights are
+                refolded and the kernel's input stage on an eval pair equals the
+                unfused stage within the kernel's tolerance.
+              eval: make_eval_fn over the 12 Eval pairs with the shipped
+                checkpoint in fp32: epe/px1/px3/nll within 1 % of the JAX CPU
+                record (scripts/jax_train_eval_record.py); one fp32 launch a pair.
+              step parity: one fp32 flow step on a 1x96x128 crop, card (cuDNN
+                off, TF32 off) against CPU, same weights and batch: the loss
+                within 1e-5; its gradient in the predictions within 1e-6 of its
+                largest value wherever the L1 sign is decided (the residual
+                exceeds the two devices' difference); the network's gradients
+                under the CPU's loss gradient within 1e-4 of each leaf's scale;
+                each weight's update by the device's own step within 1e-3 lr
+                plus two ulps, where the CPU's clipped gradient is at least 1e-2
+                of its leaf's scale and 100 Adam eps (so the first Adam step's
+                direction is decided). scripts/torch_train_step_parity.py runs
+                the same with cuDNN on as well.
+              fp32 size: FlowFormerCov.yaml (fp32, 480x640, cov mode) with the
+                batch cut from 6 to 2: ms a step, peak memory, one fp32 launch
+                a step.
+              In cov, eval and fp32 size the kernel is also held against its
+                plain version on the tokens and folded weights the path gave
+                its first call, at the kernel phase's tolerance for the type.
+13. kernels - one JSON line listing every ported kernel.
 
 Each learned run resets the kernels' launch counters right before it and
 reads them right after: every kernel of the path must have launched. Any
@@ -59,7 +92,9 @@ It writes only under ``results/`` and the kernels' build directory.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -80,6 +115,19 @@ KERNEL_SOURCES = {   # kernel -> (CUDA source, the TPU kernel it replaces)
     "latent_cross_attention": ("macvo_tpu_torch/csrc/latent_attn.cu", "macvo_tpu/ops/latent_attn.py:36"),
     "local_correlation": ("macvo_tpu_torch/csrc/correlation.cu", "macvo_tpu/ops/correlation.py:46"),
 }
+# make_eval_fn over the Eval pairs of configs/train/FlowFormerCov_synth_cov.yaml (12 pairs, 240x320, 12
+# decoder steps) with model/MACVO_FrontendCov.npz in fp32: the JAX package on the CPU,
+# `JAX_PLATFORMS=cpu python scripts/jax_train_eval_record.py` (jax 0.9.0)
+TRAIN_EVAL_JAX_CPU = {"epe": 0.8169699311256409, "px1": 0.7096279263496399, "px3": 0.9868731498718262,
+                      "nll": 2.576082468032837}
+TRAIN_EVAL_REL = 0.01
+CKPT = ROOT / "model/MACVO_FrontendCov.npz"
+KERNEL_TOL = {"fp32": (1e-4, 1e-4), "bf16": (1e-2, 1.6e-2)}   # latent attention against its plain version: (atol, rtol)
+# step parity, card (cuDNN off, TF32 off) against CPU: relative loss; loss gradient in the predictions
+# where the L1 sign is decided, over its largest value; each leaf's gradient over its scale; a weight's
+# update over (1e-3 lr + two ulps of the weight), where the first Adam step's direction is decided
+PARITY_BOUNDS = {"loss_rel_err": 1e-5, "loss_grad_rel_err": 1e-6, "grad_rel_err": 1e-4,
+                 "update_err_share_of_bound": 1.0}
 H100 = {"bytes_per_s": 3.35e12, "flops": {"float32": 67e12, "bfloat16": 989e12}}   # H100 SXM data sheet, dense
 _T0 = time.perf_counter()
 
@@ -158,7 +206,6 @@ def phase_kernel(device, n: int, t: int, timed: bool) -> dict:
     folded = latent_attn.fold_weights(wk, bk, wv, bv, q, wp, bias)
     tokens32 = rnd(n, t, 64)
     results = {}
-    tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1.6e-2)}      # (atol, rtol)
     for dtype in (torch.bfloat16, torch.float32):
         tokens = tokens32.to(dtype)
         args = (tokens, wk, bk, wv, bv, q, wp, bias)
@@ -167,7 +214,7 @@ def phase_kernel(device, n: int, t: int, timed: bool) -> dict:
         ref = latent_attn.latent_cross_attention_torch(*args).float()
         if device.type == "cuda":
             torch.cuda.synchronize()
-        atol, rtol = tol[dtype]
+        atol, rtol = KERNEL_TOL[latent_attn.DTYPE_NAMES[dtype]]
         errs = {k: (o.float() - ref).abs() for k, o in outs.items()}
         ok = all(bool((e <= atol + rtol * ref.abs()).all()) for e in errs.values())
         name = f"latent_cross_attention[{'bf16' if dtype == torch.bfloat16 else 'fp32'}]"
@@ -290,7 +337,7 @@ def phase_network(device, frame0, frame1) -> dict:
 
     from macvo_tpu_torch.models.flowformer import FlowFormerConfig, FlowFormerCov, load_flax_checkpoint
 
-    model = FlowFormerCov(FlowFormerConfig()).eval()
+    model = FlowFormerCov(FlowFormerConfig(inference_only=True)).eval()
     load_flax_checkpoint(model, ROOT / "model/MACVO_FrontendCov.npz")
     i1, i2 = (f.stereo.imageL[:, 288:352, 272:368].contiguous() for f in (frame0, frame1))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -305,6 +352,399 @@ def phase_network(device, frame0, frame1) -> dict:
     if not ok:
         raise AssertionError(f"network: card vs CPU differ by {errs}")
     return errs
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_reset(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(device):
+    import torch
+
+    return int(torch.cuda.max_memory_allocated()) if device.type == "cuda" else None
+
+
+def _timed_steps(step, batches, device) -> dict:
+    """Run ``step`` on each batch; per step: synced ms, latent-attention
+    launches by token type (counts set to 0 just before the step), loss."""
+    from macvo_tpu_torch.ops import latent_attn
+
+    recs = []
+    for b in batches:
+        latent_attn.reset_launches()
+        _sync(device)
+        start = time.perf_counter()
+        aux = step(b)
+        loss = float(aux["loss"])          # syncs
+        _sync(device)
+        recs.append({"ms": (time.perf_counter() - start) * 1e3,
+                     "launches": dict(latent_attn.latent_cross_attention.launches_by_dtype), "loss": loss})
+    return {"step_ms": [round(r["ms"], 3) for r in recs], "launches_per_step": [r["launches"] for r in recs],
+            "losses": [r["loss"] for r in recs]}
+
+
+def _train_model(cfg, device, ckpt):
+    from macvo_tpu_torch.models.flowformer import load_flax_checkpoint
+    from macvo_tpu_torch.train import run
+    from macvo_tpu_torch.train.step import set_matmul_precision
+
+    model = run.build_model(cfg, device, int(cfg.Train.seed))
+    load_flax_checkpoint(model, ckpt)
+    set_matmul_precision(model)
+    return model
+
+
+@contextlib.contextmanager
+def _kernel_inputs(perceiver):
+    """Record what the path's first fused input-stage call hands the kernel:
+    its tokens and the folded weights it ran with (after any refold)."""
+    seen = []
+
+    def fused(tokens):
+        out = type(perceiver).fused_input_stage(perceiver, tokens)
+        if not seen:
+            seen.append(tuple(x.detach().clone() for x in
+                              (tokens, perceiver.fold_m, perceiver.fold_wvp, perceiver.fold_c)))
+        return out
+
+    perceiver.fused_input_stage = fused
+    try:
+        yield seen
+    finally:
+        del perceiver.fused_input_stage
+
+
+def _check_kernel_inputs(part: str, seen: list) -> dict:
+    """The kernel against its plain version on the inputs the path gave it,
+    at the kernel phase's tolerance for the token type."""
+    import torch
+
+    from macvo_tpu_torch.ops import latent_attn
+
+    if not seen:
+        raise AssertionError(f"train {part}: the path made no fused input-stage call")
+    tokens, *fold = seen[0]
+    with torch.no_grad():
+        out = latent_attn.latent_attn_folded(tokens, *fold).float()
+        ref = latent_attn.latent_attn_folded_torch(tokens, *fold).float()
+    _sync(tokens.device)
+    atol, rtol = KERNEL_TOL[latent_attn.DTYPE_NAMES[tokens.dtype]]
+    err = (out - ref).abs()
+    rec = {"tokens": list(tokens.shape), "dtype": latent_attn.DTYPE_NAMES[tokens.dtype],
+           "max_abs_err": float(err.max()), "atol": atol, "rtol": rtol}
+    if not bool((err <= atol + rtol * ref.abs()).all()):
+        raise AssertionError(f"train {part}: kernel disagrees with its plain version on the path's tokens {rec}")
+    return rec
+
+
+def step_parity(device, crop: dict, cudnn: bool) -> dict:
+    """One fp32 flow step (FlowFormerCov_synth.yaml in fp32, TF32 off) from
+    the shipped checkpoint on ``crop``, on the CPU and on ``device``, with
+    cuDNN on or off on the card. Per device: the loss, the loss gradient in
+    the predictions, the network's gradients under the CPU's loss gradient
+    (an L1 sign is arbitrary where a prediction lies within rounding of the
+    ground truth), and each weight's update by the device's own step."""
+    import torch
+
+    from macvo_tpu_torch.data.datasets.train import upcast_batch
+    from macvo_tpu_torch.train import run
+    from macvo_tpu_torch.train.loss import sequence_loss
+    from macvo_tpu_torch.train.step import create_optimizer
+    from macvo_tpu_torch.utils.config import load_config
+
+    cfg = load_config(ROOT / "configs/train/FlowFormerCov_synth.yaml")[0]
+    cfg.Model.encoder_dtype = cfg.Model.decoder_dtype = "fp32"
+    tcfg = run.train_config(cfg)
+    res = {}
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = cudnn
+    try:
+        for dev in (torch.device("cpu"), device):       # the CPU first: its loss gradient goes to the card
+            model = _train_model(cfg, dev, CKPT)
+            opt = create_optimizer(model, tcfg)
+            before = {n: p.detach().cpu().clone() for n, p in model.named_parameters() if p.requires_grad}
+            b = upcast_batch(crop, dev)
+            pred = model(b["img1"], b["img2"])["flow_predictions"]
+            loss, _ = sequence_loss(pred, None, b["gt_flow"], b["flow_mask"], gamma=tcfg.gamma,
+                                    max_flow=tcfg.max_flow, training_mode="flow")
+            own = torch.autograd.grad(loss, pred, retain_graph=True)[0]
+            cotangent = res["cpu"]["cotangent"].to(dev) if res else own
+            pred.backward(cotangent, retain_graph=bool(res))
+            grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters() if p.requires_grad}
+            if res:                                     # the card's own step, under its own loss gradient
+                model.zero_grad(set_to_none=True)
+                pred.backward(own)
+            opt.step()
+            res["cpu" if not res else "card"] = {
+                "loss": float(loss.detach()), "cotangent": own.cpu(), "residual": (pred.detach() - b["gt_flow"]).cpu(),
+                "grads": grads, "lr": opt.adamw.param_groups[0]["lr"],
+                "update": {n: p.detach().cpu() - before[n] for n, p in model.named_parameters() if n in before},
+                "weights": {n: p.detach().cpu() for n, p in model.named_parameters() if n in before}}
+            del model, opt, pred, loss, own
+    finally:
+        torch.backends.cudnn.enabled = enabled
+    cpu, card = res["cpu"], res["card"]
+    # loss gradient: compared wherever the CPU's residual exceeds the two devices' prediction difference
+    decided = cpu["residual"].abs() > (card["residual"] - cpu["residual"]).abs()
+    ct_err = float(((card["cotangent"] - cpu["cotangent"]).abs() * decided).max()) / float(cpu["cotangent"].abs().max())
+    gh = cpu["grads"]
+    gmax = max(float(g.abs().max()) for g in gh.values())
+    leaf = sorted(((float((card["grads"][n] - g).abs().max()) / max(float(g.abs().max()), 1e-4 * gmax), n)
+                   for n, g in gh.items()), reverse=True)
+    # updates: compared where the CPU's clipped gradient is far from 0 (1e-2 of its leaf's scale, 100 Adam
+    # eps), so both first Adam steps move the weight by lr in one direction; within 1e-3 lr + 2 ulps (each
+    # device rounds the new weight twice: decay, then the Adam update)
+    norm = float(torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in gh.values()])))
+    clip = min(1.0, tcfg.clip / norm)
+    lr = cpu["lr"]
+    n_checked = n_over = 0
+    upd_err = 0.0
+    for n, g in gh.items():
+        sure = (g.abs() >= 1e-2 * g.abs().max()) & (clip * g.abs() >= 100 * 1e-8)
+        w = cpu["weights"][n].abs()
+        ulp = torch.nextafter(w, torch.full_like(w, float("inf"))) - w
+        diff = (card["update"][n] - cpu["update"][n]).abs()
+        rel = (diff / (1e-3 * lr + 2 * ulp))[sure]
+        n_checked += int(sure.sum())
+        n_over += int((rel > 1).sum())
+        upd_err = max(upd_err, float(rel.max()) if rel.numel() else 0.0)
+    n_weights = sum(g.numel() for g in gh.values())
+    return {"crop_hwb": list(crop["img1"].shape[1:3]) + [int(crop["img1"].shape[0])], "cudnn": cudnn, "lr": lr,
+            "loss": {"cpu": cpu["loss"], "card": card["loss"]},
+            "loss_rel_err": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+            "loss_grad_rel_err": ct_err, "loss_grad_within_rounding": int((~decided).sum()),
+            "loss_grad_elements": int(decided.numel()),
+            "grad_rel_err": leaf[0][0], "worst_leaves": [{"rel_err": e, "leaf": n} for e, n in leaf[:3]],
+            "update_err_share_of_bound": upd_err, "updates_checked": n_checked, "updates_over": n_over,
+            "weights": n_weights,
+            "updates_beyond_1e-3_lr": sum(int(((card["update"][n] - cpu["update"][n]).abs() > 1e-3 * lr).sum())
+                                          for n in gh)}
+
+
+def phase_train(device, rehearsal: bool) -> dict:
+    """The five checks of the training path (module docstring, phase 12).
+    Returns the latent-attention launches of each part by kernel name."""
+    import numpy as np
+    import torch
+
+    from macvo_tpu_torch.data.datasets.train import TrainPairDataset, upcast_batch
+    from macvo_tpu_torch.models.flowformer.encoder import all_pairs_correlation
+    from macvo_tpu_torch.models.flowformer.network import precision_scope
+    from macvo_tpu_torch.ops import latent_attn
+    from macvo_tpu_torch.train import run
+    from macvo_tpu_torch.train.step import create_optimizer, is_trainable, make_train_step
+    from macvo_tpu_torch.utils.config import load_config, namespace_to_dict
+
+    counts = latent_attn.latent_cross_attention.launches_by_dtype
+    on_card = device.type == "cuda"
+    launches = {"latent_cross_attention[bf16]": {}, "latent_cross_attention[fp32]": {}}
+
+    def record(part: str, per_step: list) -> None:
+        for dt in ("bf16", "fp32"):
+            launches[f"latent_cross_attention[{dt}]"][part] = sum(s[dt] for s in per_step)
+
+    def small(cfg, fp32=False):    # CPU rehearsal: 2 decoder steps, 64x96 crops, batch 2
+        if rehearsal:
+            cfg.Model.decoder_depth = 2
+            cfg.Train.image_height, cfg.Train.image_width, cfg.Train.batch_size = 64, 96, 2
+        if fp32:
+            cfg.Model.encoder_dtype = cfg.Model.decoder_dtype = "fp32"
+        return cfg
+
+    # cov: the shipped phase-2 recipe, 3 steps, batches drawn before the timed steps
+    emit("train", "start", part="cov")
+    cfg = small(load_config(ROOT / "configs/train/FlowFormerCov_synth_cov.yaml")[0])
+    tcfg = run.train_config(cfg)
+    h, w, bs, seed = (int(cfg.Train.image_height), int(cfg.Train.image_width), int(cfg.Train.batch_size),
+                      int(cfg.Train.seed))
+    dataset = TrainPairDataset(cfg.Data.Sequences, cfg.Data.transforms, stereo_prob=float(cfg.Data.stereo_prob))
+    rng = np.random.default_rng(seed)          # the runner's stream: run.make_batches(cfg, bs, h, w, seed)
+    start = time.perf_counter()
+    batches = [dataset.draw(bs, h, w, rng) for _ in range(3)]
+    data_ms = (time.perf_counter() - start) * 1e3 / 3
+    model = _train_model(cfg, device, CKPT)
+    opt = create_optimizer(model, tcfg)
+    step = make_train_step(model, opt, tcfg, device)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    _peak_reset(device)
+    with _kernel_inputs(model.memory_encoder.perceiver) as seen:
+        rec = _timed_steps(step, batches, device)
+    rec["peak_memory_bytes"] = _peak(device)
+    frozen_equal = all(torch.equal(before[n], p) for n, p in model.named_parameters() if not is_trainable(n, "cov"))
+    moved = sorted({".".join(n.split(".")[:3]) for n, p in model.named_parameters() if not torch.equal(before[n], p)})
+    rec.update(data_ms_per_batch=data_ms, batch=bs, crop_hw=[h, w], decoder_depth=int(cfg.Model.decoder_depth),
+               dtype=str(cfg.Model.encoder_dtype), frozen_bit_identical=frozen_equal, moved_modules=moved,
+               steady_step_ms=float(np.median(rec["step_ms"][1:])))
+    record("train.cov", rec["launches_per_step"])
+    rec["kernel_on_path_tokens"] = _check_kernel_inputs("cov", seen)
+    emit("train", "end", part="cov", **rec)
+    if not all(np.isfinite(rec["losses"])) or not frozen_equal or not moved:
+        raise AssertionError(f"train cov: losses {rec['losses']}, frozen weights bit-identical {frozen_equal}, "
+                             f"moved {moved}")
+    if on_card and rec["launches_per_step"] != [{"fp32": 0, "bf16": 1}] * 3:
+        raise AssertionError(f"train cov: latent attention launches a step {rec['launches_per_step']}, "
+                             "not one bf16 launch")
+    del seen
+
+    # flow: phase-1 recipe (same data section), 2 steps, then the refolded kernel on an eval pair
+    emit("train", "start", part="flow")
+    flow_cfg = small(load_config(ROOT / "configs/train/FlowFormerCov_synth.yaml")[0])
+    if namespace_to_dict(flow_cfg.Data) != namespace_to_dict(cfg.Data):
+        raise AssertionError("train flow: the two recipes' data sections differ; the rendered frames cannot be shared")
+    ftcfg = run.train_config(flow_cfg)
+    frng = np.random.default_rng(int(flow_cfg.Train.seed))
+    start = time.perf_counter()
+    fbatches = [dataset.draw(bs, h, w, frng) for _ in range(2)]
+    fdata_ms = (time.perf_counter() - start) * 1e3 / 2
+    del model, opt, step
+    model = _train_model(flow_cfg, device, CKPT)
+    opt = create_optimizer(model, ftcfg)
+    step = make_train_step(model, opt, ftcfg, device)
+    perceiver = model.memory_encoder.perceiver
+    key = perceiver._folded_key
+    _peak_reset(device)
+    rec = _timed_steps(step, fbatches, device)
+    rec["peak_memory_bytes"] = _peak(device)
+    weights_moved = perceiver._fold_key() != key
+    pair = upcast_batch(run.eval_pairs(cfg, h, w)[0], device)
+    with torch.no_grad(), precision_scope(device, str(flow_cfg.Model.encoder_dtype)):
+        f1, f2 = torch.chunk(model.features(torch.cat([pair["img1"], pair["img2"]])), 2)
+        tokens = perceiver.tokenize(all_pairs_correlation(f1, f2)).contiguous()
+    latent_attn.reset_launches()
+    with torch.no_grad():
+        fused = perceiver.fused_input_stage(tokens)
+    _sync(device)
+    eval_launches = dict(counts)
+    stale = [b.clone() for b in (perceiver.fold_m, perceiver.fold_wvp, perceiver.fold_c)]
+    perceiver.fold_input_stage()
+    refolded = all(torch.equal(a, b) for a, b in zip(stale, (perceiver.fold_m, perceiver.fold_wvp, perceiver.fold_c)))
+    with torch.no_grad():
+        unfused = perceiver.input_stage(tokens.float()).float()
+    err = (fused.float() - unfused).abs()
+    atol, rtol = KERNEL_TOL["bf16"]
+    agrees = bool((err <= atol + rtol * unfused.abs()).all())
+    rec.update(data_ms_per_batch=fdata_ms, weights_moved=weights_moved, refolded_before_the_kernel=refolded,
+               eval_pair_tokens=list(tokens.shape), max_abs_err=float(err.max()), atol=atol, rtol=rtol,
+               eval_pair_launches=eval_launches, steady_step_ms=rec["step_ms"][-1])
+    record("train.flow (steps)", rec["launches_per_step"])
+    record("train.flow (eval pair)", [eval_launches])
+    emit("train", "end", part="flow", **rec)
+    if not all(np.isfinite(rec["losses"])) or not weights_moved or not refolded or not agrees:
+        raise AssertionError(f"train flow: {rec}")
+    if on_card and (any(sum(s.values()) for s in rec["launches_per_step"])
+                    or eval_launches != {"fp32": 0, "bf16": 1}):
+        raise AssertionError(f"train flow: kernel launches {rec['launches_per_step']} in the steps, "
+                             f"{eval_launches} for the eval pair")
+
+    # eval: the shipped checkpoint in fp32 against the JAX CPU record
+    emit("train", "start", part="eval")
+    del model, opt, step
+    model = _train_model(small(load_config(ROOT / "configs/train/FlowFormerCov_synth_cov.yaml")[0], fp32=True),
+                         device, CKPT)
+    start = time.perf_counter()
+    pairs = run.eval_pairs(cfg, h, w)
+    render_ms = (time.perf_counter() - start) * 1e3
+    evaluate = run.make_eval_fn(model, tcfg.max_flow)
+    _peak_reset(device)
+    latent_attn.reset_launches()
+    start = time.perf_counter()
+    with _kernel_inputs(model.memory_encoder.perceiver) as seen:
+        ms = [{k: float(v) for k, v in evaluate(b).items()} for b in pairs]
+    eval_ms = (time.perf_counter() - start) * 1e3 / len(pairs)
+    eval_launches = dict(counts)
+    agg = {k: float(np.mean([m[k] for m in ms])) for k in ms[0]}
+    rel = {k: abs(agg[k] - TRAIN_EVAL_JAX_CPU[k]) / abs(TRAIN_EVAL_JAX_CPU[k]) for k in agg}
+    rec = {"pairs": len(pairs), "metrics": agg, "jax_cpu_record": TRAIN_EVAL_JAX_CPU, "rel_diff": rel,
+           "rel_bound": TRAIN_EVAL_REL, "ms_per_pair": eval_ms, "render_ms": render_ms,
+           "launches": eval_launches, "peak_memory_bytes": _peak(device),
+           "kernel_on_path_tokens": _check_kernel_inputs("eval", seen)}
+    record("train.eval", [eval_launches])
+    emit("train", "end", part="eval", **rec)
+    if not rehearsal and any(v > TRAIN_EVAL_REL for v in rel.values()):
+        raise AssertionError(f"train eval: {agg} not within {TRAIN_EVAL_REL:.0%} of the JAX CPU record")
+    if on_card and eval_launches != {"fp32": len(pairs), "bf16": 0}:
+        raise AssertionError(f"train eval: kernel launches {eval_launches} for {len(pairs)} fp32 pairs")
+    del model, seen
+
+    # step parity: one fp32 flow step on a 1x96x128 crop, the card (cuDNN off) against the CPU
+    if on_card:
+        emit("train", "start", part="step parity")
+        rec = step_parity(device, {k: v[:1, :96, :128] for k, v in batches[0].items()}, cudnn=False)
+        rec["bounds"] = PARITY_BOUNDS
+        emit("train", "end", part="step parity", **rec)
+        if any(rec[k] > bound for k, bound in PARITY_BOUNDS.items()):
+            raise AssertionError(f"train step parity: {rec}")
+
+    # fp32 size: the fp32 recipe at 480x640, batch cut from 6 to 2
+    emit("train", "start", part="fp32 size")
+    fcfg = load_config(ROOT / "configs/train/FlowFormerCov.yaml")[0]
+    fbs = 2
+    fh, fw = (int(fcfg.Train.image_height), int(fcfg.Train.image_width)) if not rehearsal else (96, 128)
+    if rehearsal:
+        fcfg.Model.decoder_depth = 2
+    start = time.perf_counter()
+    fb = next(run.make_batches(fcfg, fbs, fh, fw, int(fcfg.Train.seed)))
+    fdata_ms = (time.perf_counter() - start) * 1e3
+    model = _train_model(fcfg, device, CKPT)
+    ftc = run.train_config(fcfg)
+    opt = create_optimizer(model, ftc)
+    step = make_train_step(model, opt, ftc, device)
+    _peak_reset(device)
+    with _kernel_inputs(model.memory_encoder.perceiver) as seen:
+        rec = _timed_steps(step, [fb, fb], device)
+    rec.update(peak_memory_bytes=_peak(device), data_ms_per_batch=fdata_ms, crop_hw=[fh, fw], batch=fbs,
+               reduced={"batch_size": [int(fcfg.Train.batch_size), fbs]}, dtype="fp32",
+               decoder_depth=int(fcfg.Model.decoder_depth), steady_step_ms=rec["step_ms"][-1])
+    record("train.fp32 size", rec["launches_per_step"])
+    rec["kernel_on_path_tokens"] = _check_kernel_inputs("fp32 size", seen)
+    emit("train", "end", part="fp32 size", **rec)
+    if not all(np.isfinite(rec["losses"])):
+        raise AssertionError(f"train fp32 size: losses {rec['losses']}")
+    if on_card and rec["launches_per_step"] != [{"fp32": 1, "bf16": 0}] * 2:
+        raise AssertionError(f"train fp32 size: latent attention launches a step {rec['launches_per_step']}, "
+                             "not one fp32 launch")
+    del model, opt, step, seen
+
+    # the runner as a user calls it, then the odometry on its checkpoint
+    emit("train", "start", part="runner")
+    out_dir = ROOT / "results/chip_smoke_train"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out = out_dir / "FlowFormerCov_synth_cov.npz"
+    argv = ["--config", str(ROOT / "configs/train/FlowFormerCov_synth_cov.yaml"), "--restore", str(CKPT),
+            "--steps", "3", "--log_freq", "1", "--out", str(out), "--device", device.type]
+    if rehearsal:
+        argv += ["--height", "64", "--width", "96", "--batch", "2"]
+    latent_attn.reset_launches()
+    start = time.perf_counter()
+    run.main(argv)
+    _sync(device)
+    rec = {"argv": argv[2:], "wall_s": time.perf_counter() - start, "launches": dict(counts),
+           "done": (out_dir / "FlowFormerCov_synth_cov.done").exists(),
+           "metrics_rows": (out_dir / "FlowFormerCov_synth_cov_metrics.csv").read_text().strip().splitlines()}
+    with np.load(CKPT) as ref, np.load(out) as new:
+        moved = sorted(k for k in ref.files if not np.array_equal(ref[k], new[k]))
+        rec["keys"], rec["moved_keys"] = len(new.files), len(moved)
+        rec["only_cov_branch_moved"] = bool(moved) and all(
+            any(m in k for m in ("cov_gru", "cov_head", "cov_mask")) for k in moved) and set(new.files) == set(ref.files)
+    record(f"train.runner (3 steps + {len(pairs)} eval pairs)", [rec["launches"]])
+    emit("train", "end", part="runner", **rec)
+    if not rec["done"] or not rec["only_cov_branch_moved"] or len(rec["metrics_rows"]) != 5:
+        raise AssertionError(f"train runner: {rec}")
+    if on_card and rec["launches"] != {"fp32": 0, "bf16": 3 + len(pairs)}:
+        raise AssertionError(f"train runner: kernel launches {rec['launches']}, not {3 + len(pairs)} bf16")
+    return launches, out
 
 
 class CroppedSequence:
@@ -476,14 +916,15 @@ def main() -> int:
         emit(phase, "start")
         cfg = load_config(ROOT / "configs/experiment/macvo" / cfg_file)[0]
         cfg.Odometry.frontend.args.weight = str(ROOT / "model/MACVO_FrontendCov.npz")
-        latent_attn.latent_cross_attention.launches = 0
+        latent_attn.reset_launches()
         rec = run_odometry(cfg, learned_seq, device, phase)
-        launches[kname] = latent_attn.latent_cross_attention.launches
-        rec["latent_attn_launches"] = launches[kname]
+        launches[kname] = latent_attn.latent_cross_attention.launches_by_dtype[kname[-5:-1]]
+        rec["latent_attn_launches"] = dict(latent_attn.latent_cross_attention.launches_by_dtype)
         emit(phase, "end", ate_bound_m=LEARNED_ATE[phase], **rec)
         if not args.size and rec["ATE_m"] > LEARNED_ATE[phase]:
             raise AssertionError(f"{phase}: ATE {rec['ATE_m']} m > {LEARNED_ATE[phase]} m")
-        if on_card and launches[kname] < rec["frames"] - 1:
+        if on_card and (launches[kname] < rec["frames"] - 1
+                        or latent_attn.latent_cross_attention.launches != launches[kname]):
             raise AssertionError(f"{phase}: latent attention kernel launched {launches[kname]} times "
                                  f"over {rec['frames']} frames")
 
@@ -514,7 +955,8 @@ def main() -> int:
     start = time.perf_counter()
     synth_frames = [synth_seq[i] for i in range(len(synth_seq))]     # rendered before the run, not inside it
     render_s = time.perf_counter() - start
-    latent_attn.latent_cross_attention.launches = correlation.local_correlation.launches = 0
+    latent_attn.reset_launches()
+    correlation.local_correlation.launches = 0
     rec = run_odometry(cfg, synth_frames, device, "synthetic")
     rec["render_s"] = render_s
     rec["kernel_launches"] = {"latent_cross_attention": latent_attn.latent_cross_attention.launches,
@@ -525,7 +967,8 @@ def main() -> int:
         raise AssertionError(f"synthetic: a kernel launched on a path that has none: {rec['kernel_launches']}")
 
     # 10./11. Paper_Reproduce and three ablation configs on the real clip
-    by_phase = {"performant": launches["latent_cross_attention[fp32]"]}
+    by_phase = {"latent_cross_attention[fp32]": {"performant": launches["latent_cross_attention[fp32]"]},
+                "latent_cross_attention[bf16]": {"fast": launches["latent_cross_attention[bf16]"]}}
     runs = [("paper", "Paper_Reproduce.yaml")] + [("ablation", f"ablation/{a}.yaml") for a in ABLATIONS]
     for phase, cfg_file in runs:
         variant = Path(cfg_file).stem
@@ -534,17 +977,40 @@ def main() -> int:
         cfg.Odometry.frontend.args.weight = str(ROOT / "model/MACVO_FrontendCov.npz")
         if cfg.Odometry.motion.type == "TartanMotionNet":
             cfg.Odometry.motion.args.weight = str(ROOT / "model/TartanVO_posenet.npz")
-        latent_attn.latent_cross_attention.launches = 0
+        latent_attn.reset_launches()
         rec = run_odometry(cfg, learned_seq, device, phase)
-        rec["latent_attn_launches"] = by_phase[f"{phase}[{variant}]"] = latent_attn.latent_cross_attention.launches
+        rec["latent_attn_launches"] = latent_attn.latent_cross_attention.launches_by_dtype["fp32"]
+        rec["latent_attn_launches_bf16"] = latent_attn.latent_cross_attention.launches_by_dtype["bf16"]
+        by_phase["latent_cross_attention[fp32]"][f"{phase}[{variant}]"] = rec["latent_attn_launches"]
         emit(phase, "end", config=variant, ate_bound_m=LEARNED_ATE.get(phase), **rec)
         if not args.size and phase in LEARNED_ATE and rec["ATE_m"] > LEARNED_ATE[phase]:
             raise AssertionError(f"{phase}: ATE {rec['ATE_m']} m > {LEARNED_ATE[phase]} m")
-        if on_card and rec["latent_attn_launches"] != rec["frames"]:
+        if on_card and (rec["latent_attn_launches"] != rec["frames"] or rec["latent_attn_launches_bf16"]):
             raise AssertionError(f"{phase} ({variant}): latent attention kernel launched "
-                                 f"{rec['latent_attn_launches']} times over {rec['frames']} frames, not one a frame")
+                                 f"{rec['latent_attn_launches']} (fp32) times over {rec['frames']} frames, "
+                                 "not one fp32 launch a frame")
 
-    # 12. kernels
+    # 12. training: five checks, then the odometry on the checkpoint the runner wrote
+    emit("train", "start")
+    train_launches, trained = phase_train(device, rehearsal=bool(args.size))
+    for name, parts in train_launches.items():
+        by_phase.setdefault(name, {}).update(parts)
+    cfg = load_config(ROOT / "configs/experiment/macvo/MACVO_Performant.yaml")[0]
+    cfg.Odometry.frontend.args.weight = str(trained)
+    seq3 = TartanAirV2({"root": str(ROOT / clip.root), "compressed": True, "gtFlow": False, "gtDepth": False,
+                        "gtPose": True}).clip(0, 3)
+    latent_attn.reset_launches()
+    rec = run_odometry(cfg, CroppedSequence(seq3, args.size) if args.size else seq3, device, "train")
+    rec["latent_attn_launches"] = latent_attn.latent_cross_attention.launches_by_dtype["fp32"]
+    by_phase["latent_cross_attention[fp32]"]["train.odometry (trained checkpoint, 3 frames)"] = rec["latent_attn_launches"]
+    emit("train", "end", part="odometry on the trained checkpoint", weight=str(trained.relative_to(ROOT)), **rec)
+    if on_card and (rec["latent_attn_launches"] != rec["frames"] or latent_attn.latent_cross_attention.launches
+                    != rec["frames"]):
+        raise AssertionError(f"train: odometry on the trained checkpoint launched the kernel "
+                             f"{rec['latent_attn_launches']} times over {rec['frames']} frames")
+    shutil.rmtree(trained.parent)       # the 55 MB checkpoint and its run's files
+
+    # 13. kernels
     kernels = []
     for name, rec in kernel_recs.items():
         source, replaces = KERNEL_SOURCES[name.split("[")[0]]
@@ -555,8 +1021,8 @@ def main() -> int:
             "bound_share": rec.get("bound_share"), "device_ms": rec.get("device_ms"),
             "device_bound_share": rec.get("device_bound_share"),
         })
-        if name == "latent_cross_attention[fp32]":
-            kernels[-1]["launches_by_phase"] = by_phase
+        if name in by_phase:
+            kernels[-1]["launches_by_phase"] = by_phase[name]
     print(json.dumps({"kernels": kernels}), flush=True)
     if on_card:
         print(smi, flush=True)

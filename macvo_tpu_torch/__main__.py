@@ -37,7 +37,7 @@ def build_sequence(data_cfg, odom_cfg, seq_from=None, seq_to=None):
     elif pre is not None and not isinstance(pre, list):
         pre = getattr(pre, seq.name(), None)
     if pre:
-        raise NotImplementedError(f"the port has no data transforms yet; {seq.name()} needs {pre}")
+        raise NotImplementedError(f"the runner does not apply Preprocess transforms yet; {seq.name()} needs {pre}")
     return seq
 
 

@@ -234,13 +234,19 @@ class DecoderIteration(nn.Module):
 
 
 class MemoryCovDecoder(nn.Module):
-    """cost_memory + context + cost_maps -> final full-res (flow, cov) after
-    ``decoder_depth`` steps (the flax model's ``inference_only`` output)."""
+    """cost_memory + context + cost_maps -> (flow, cov) after ``decoder_depth``
+    steps. ``inference_only`` returns the final full-res pair and the low-res
+    pair; otherwise (training) also the per-step full-res stacks
+    ``flow_predictions`` / ``cov_predictions`` (depth, B, 8H, 8W, 2) for the
+    sequence loss. One code path serves both: the mask heads and the convex
+    upsampling run once over the kept states (the final one, or all depth*B). The coordinates are not detached between
+    steps, as in the JAX package."""
 
     def __init__(self, decoder_depth: int = 12, query_latent_dim: int = 64,
-                 cost_latent_dim: int = 128, ctx_dim: int = 256) -> None:
+                 cost_latent_dim: int = 128, ctx_dim: int = 256, inference_only: bool = False) -> None:
         super().__init__()
         self.decoder_depth = decoder_depth
+        self.inference_only = inference_only
         self.proj = SameConv(ctx_dim, 256, 3)
         self.att = GMAAttention(128)
         self.mem_k = nn.Linear(cost_latent_dim, cost_latent_dim)
@@ -250,8 +256,7 @@ class MemoryCovDecoder(nn.Module):
         self.cov_mask = MaskHead(128)
 
     def forward(self, cost_memory, context, cost_maps, compute_dtype=torch.float32):
-        """context (B,H1,W1,C) fp32 channel-last; returns channel-last
-        flow_final / cov_final (B,8H1,8W1,2) and the low-res pair."""
+        """context (B,H1,W1,C) fp32 channel-last; returns channel-last outputs."""
         b, h1, w1, _ = context.shape
         dt = compute_dtype
         coords0 = coords_grid(b, h1, w1, context.device)
@@ -265,16 +270,27 @@ class MemoryCovDecoder(nn.Module):
         inv = {"coords0": coords0, "cost_maps": cost_maps, "flow_inp": flow_inp,
                "attention": attention, "mem_k": mem_k, "mem_v": mem_v}
         state = (coords0, coords0, flow_net0, flow_net0)
+        steps = []
         for _ in range(self.decoder_depth):
             state = self.iteration(state, inv)
-        flow_coords1, cov_coords1, flow_net, fcov_net = state
-        up_mask = 0.25 * self.flow_mask(flow_net).float()
-        cmask = 0.25 * self.cov_mask(fcov_net).float()
-        flow_up = upsample_convex(flow_coords1 - coords0, up_mask)
-        cov_up = upsample_convex(cov_coords1 - coords0, cmask)
-        return {
-            "flow_final": flow_up.permute(0, 2, 3, 1),
-            "cov_final": cov_up.permute(0, 2, 3, 1),
-            "flow_lowres": (flow_coords1 - coords0).permute(0, 2, 3, 1),
-            "cov_lowres": (cov_coords1 - coords0).permute(0, 2, 3, 1),
-        }
+            if not self.inference_only:
+                steps.append(state)
+        if self.inference_only:
+            steps = [state]
+        out = {"flow_lowres": (state[0] - coords0).permute(0, 2, 3, 1),
+               "cov_lowres": (state[1] - coords0).permute(0, 2, 3, 1)}
+        # One mask-head + upsampling pass over the kept steps, (depth*B, ...).
+        depth = len(steps)
+        flows_lr = torch.cat([s[0] - coords0 for s in steps])
+        covs_lr = torch.cat([s[1] - coords0 for s in steps])
+        up_masks = 0.25 * self.flow_mask(torch.cat([s[2] for s in steps])).float()
+        cmasks = 0.25 * self.cov_mask(torch.cat([s[3] for s in steps])).float()
+
+        def stack(x):   # (depth*B, 2, 8H, 8W) -> (depth, B, 8H, 8W, 2)
+            return x.permute(0, 2, 3, 1).reshape((depth, b) + x.shape[2:] + (x.shape[1],))
+
+        flows, covs = stack(upsample_convex(flows_lr, up_masks)), stack(upsample_convex(covs_lr, cmasks))
+        out["flow_final"], out["cov_final"] = flows[-1], covs[-1]
+        if not self.inference_only:
+            out["flow_predictions"], out["cov_predictions"] = flows, covs
+        return out

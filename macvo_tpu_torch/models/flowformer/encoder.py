@@ -112,7 +112,10 @@ class CostPerceiverEncoder(nn.Module):
     ``fold_m``, ``fold_wvp`` and ``fold_c``, which follow the module's
     ``.to(device)``. When a gradient is wanted (grad mode on and a parameter
     or the cost maps require grad) it runs unfused, :meth:`input_stage`, the
-    form the JAX package trains through (``fused_input=False``)."""
+    form the JAX package trains through (``fused_input=False``). A fused call
+    refolds first when a weight of the input stage changed since the last
+    fold (its version counter moved, as an optimizer step moves it), so
+    evaluation during training never runs on stale folded weights."""
 
     def __init__(self, cost_latent_input_dim: int = 64, cost_latent_token_num: int = 8,
                  cost_latent_dim: int = 128, encoder_depth: int = 3, patch_size: int = 8,
@@ -175,12 +178,27 @@ class CostPerceiverEncoder(nn.Module):
                               att.proj.weight.T.to(f64), latents + att.proj.bias.to(f64))
         for buf, value in zip((self.fold_m, self.fold_wvp, self.fold_c), folded):
             buf.copy_(value)
+        self._folded_key = self._fold_key()
+
+    def _fold_key(self) -> tuple:
+        """Storage and version counter of each weight the fold reads."""
+        att = self.input_attn
+        weights = (self.latents, self.input_proj.weight, self.input_proj.bias) + tuple(
+            p for lin in (att.q, att.k, att.v, att.proj) for p in (lin.weight, lin.bias))
+        return tuple((p.data_ptr(), p._version) for p in weights)
 
     def input_stage(self, tokens: torch.Tensor) -> torch.Tensor:
         """Unfused input stage (``macvo_tpu/models/flowformer/encoder.py:235-240``):
         input_proj, k/v, softmax over the tokens, proj, plus the latents."""
         latents = self.latents.expand(tokens.shape[0], -1, -1)
         return latents.to(tokens.dtype) + self.input_attn(latents, self.input_proj(tokens))
+
+    def fused_input_stage(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The folded input stage (the kernel on CUDA tensors), refolded first
+        if a weight it reads changed since the last fold."""
+        if self._fold_key() != self._folded_key:
+            self.fold_input_stage()
+        return latent_attn_folded(tokens, self.fold_m, self.fold_wvp, self.fold_c)
 
     def forward(self, cost_maps: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, n1 = cost_maps.shape[:2]
@@ -191,7 +209,7 @@ class CostPerceiverEncoder(nn.Module):
         if torch.is_grad_enabled() and (tokens.requires_grad or any(p.requires_grad for p in self.parameters())):
             x = self.input_stage(tokens)
         else:
-            x = latent_attn_folded(tokens, self.fold_m, self.fold_wvp, self.fold_c)
+            x = self.fused_input_stage(tokens)
         for i in range(self.encoder_depth):
             x = getattr(self, f"intra{i}")(x)
             grid = x.reshape(b, h1, w1, self.token_num, self.latent_dim)

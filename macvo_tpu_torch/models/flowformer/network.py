@@ -41,6 +41,10 @@ class FlowFormerConfig:
     decoder_depth: int = 12
     encoder_dtype: str = "fp32"
     decoder_dtype: str = "fp32"
+    # Inference: only the final (and low-res) prediction. Training
+    # (``False``, the JAX default) adds the per-step upsampled stacks for the
+    # sequence loss.
+    inference_only: bool = False
 
 
 def precision_scope(device: torch.device, dtype_name: str):
@@ -68,6 +72,7 @@ class FlowFormerCov(nn.Module):
             decoder_depth=cfg.decoder_depth,
             query_latent_dim=cfg.query_latent_dim,
             cost_latent_dim=cfg.cost_latent_dim,
+            inference_only=cfg.inference_only,
         )
 
     def _enc_scope(self, x):

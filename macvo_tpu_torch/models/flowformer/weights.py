@@ -20,10 +20,16 @@ The decoder's scanned step stores ONE shared parameter set under
 ``memory_decoder/iteration/...``, which is exactly one torch submodule here.
 Conversion happens in memory each time a model loads: no converted file is
 written.
+
+The way back, :func:`torch_to_flax` and :func:`save_params`, writes a trained
+model in the JAX package's npz layout, so ``macvo_tpu``'s ``load_params`` and
+this package's loader both read it. A training run's full state (model,
+optimizer and step) is the port's own file, :func:`save_train_state`.
 """
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 from typing import Collection, Mapping
 
@@ -87,3 +93,55 @@ def load_state(module: torch.nn.Module, state: Mapping[str, torch.Tensor]) -> No
             raise ValueError(f"parameter {key!r}: checkpoint {tuple(value.shape)} "
                              f"!= model {tuple(own[key].shape)}")
     module.load_state_dict(state, strict=True)
+
+
+def torch_to_flax(state: Mapping[str, torch.Tensor], transposed: Collection[str] = ()) -> dict[str, np.ndarray]:
+    """Inverse of :func:`flax_to_torch`: torch state_dict => flax path -> float32
+    array. A 1-d ``weight`` is a LayerNorm ``scale``; a 2-d one a Dense kernel; a
+    4-d one a Conv kernel, or a ConvTranspose kernel (flipped back) for the
+    modules in ``transposed``."""
+    out: dict[str, np.ndarray] = {}
+    for key, value in state.items():
+        parts = key.split(".")
+        leaf = parts[-1]
+        a = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            if a.ndim == 1:
+                leaf = "scale"
+            elif a.ndim == 2:
+                a, leaf = a.T, "kernel"
+            elif a.ndim == 4 and ".".join(parts[:-1]) in transposed:
+                a, leaf = a.transpose(2, 3, 0, 1)[::-1, ::-1], "kernel"
+            elif a.ndim == 4:
+                a, leaf = a.transpose(2, 3, 1, 0), "kernel"
+            else:
+                raise ValueError(f"{key}: unexpected weight rank {a.ndim}")
+        elif leaf not in ("bias", "latents", "gamma"):
+            raise ValueError(f"{key}: unknown torch leaf {leaf!r}")
+        out["/".join(parts[:-1] + [leaf])] = np.ascontiguousarray(a)
+    return out
+
+
+def save_params(path: str | Path, module: torch.nn.Module) -> None:
+    """Write ``module``'s parameters as an npz in the JAX package's layout
+    (``np.savez_compressed`` of flax path -> float32 array)."""
+    np.savez_compressed(path, **torch_to_flax(module.state_dict(), transposed_convs(module)))
+
+
+def save_train_state(path: str | Path, model: torch.nn.Module, optimizer, step: int) -> None:
+    """Full training state for a lossless resume: the model's state_dict, the
+    optimizer's (moments, counts) and the step, written atomically (a temporary
+    file, then a rename)."""
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(), "step": int(step)}, tmp)
+    os.replace(tmp, path)
+
+
+def load_train_state(path: str | Path, model: torch.nn.Module, optimizer) -> int:
+    """Restore what :func:`save_train_state` wrote into ``model`` and
+    ``optimizer``; returns the step."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    load_state(model, state["model"])
+    optimizer.load_state_dict(state["optimizer"])
+    return int(state["step"])

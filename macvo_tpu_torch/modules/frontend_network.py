@@ -50,6 +50,7 @@ class _FlowFormerRunner:
             decoder_depth=int(getattr(config, "decoder_depth", 12)),
             encoder_dtype=getattr(config, "enc_dtype", "fp32"),
             decoder_dtype=getattr(config, "dec_dtype", "fp32"),
+            inference_only=True,
         )
         model = FlowFormerCov(self.cfg)
         load_flax_checkpoint(model, str(config.weight))

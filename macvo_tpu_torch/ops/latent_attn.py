@@ -13,7 +13,9 @@ that function: :func:`fold_weights` turns the seven weights into (M, Wvp, c),
 and :func:`latent_attn_folded` takes those directly, so a caller whose
 weights do not change (``CostPerceiverEncoder``) folds them once. Both entry
 points launch the kernel on CUDA tensors (each launch counts in
-``latent_cross_attention.launches``) and run a plain version on CPU tensors
+``latent_cross_attention.launches`` and, by token type, in
+``latent_cross_attention.launches_by_dtype``; :func:`reset_launches` sets
+both to 0) and run a plain version on CPU tensors
 (:func:`latent_cross_attention_torch`, :func:`latent_attn_folded_torch`).
 There is no fallback between the two: a CUDA tensor the kernel cannot take
 raises, and so does one that requires grad (the kernel is forward-only; the
@@ -31,19 +33,21 @@ from ._build import build
 
 D_IN, N_Q, D_OUT = 64, 8, 128
 MAX_TOKENS = 512   # the kernel's ring holds at least one pixel's (T, 64) tile
+DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 
 
 def latent_cross_attention_torch(tokens, wk, bk, wv, bv, q, wp, bias):
-    """Plain version (same math as ``latent_cross_attention_xla``), fp32 compute,
-    output in the token dtype."""
-    t32 = tokens.float()
-    k = t32 @ wk.float() + bk.float()
-    v = t32 @ wv.float() + bv.float()
-    scale = float(q.shape[1]) ** -0.5
-    s = torch.einsum("qe,nte->nqt", q.float() * scale, k)
-    a = torch.softmax(s, dim=-1)
-    o = torch.einsum("nqt,nte->nqe", a, v) @ wp.float()
-    return (o + bias.float()).to(tokens.dtype)
+    """Plain version (same math as ``latent_cross_attention_xla``), fp32 compute
+    (also under autocast), output in the token dtype."""
+    with torch.autocast(device_type=tokens.device.type, enabled=False):
+        t32 = tokens.float()
+        k = t32 @ wk.float() + bk.float()
+        v = t32 @ wv.float() + bv.float()
+        scale = float(q.shape[1]) ** -0.5
+        s = torch.einsum("qe,nte->nqt", q.float() * scale, k)
+        a = torch.softmax(s, dim=-1)
+        o = torch.einsum("nqt,nte->nqe", a, v) @ wp.float()
+        return (o + bias.float()).to(tokens.dtype)
 
 
 def fold_weights(wk, bk, wv, bv, q, wp, bias):
@@ -62,11 +66,12 @@ def fold_weights(wk, bk, wv, bv, q, wp, bias):
 
 
 def latent_attn_folded_torch(tokens, m, wvp, c):
-    """Plain version of the folded form the kernel computes, fp32 compute,
-    output in the token dtype: softmax_t(tok M)^T tok Wvp + c."""
-    tok = tokens.float()
-    a = torch.softmax(torch.einsum("ntd,dq->nqt", tok, m.float()), dim=-1)
-    return (torch.einsum("nqt,ntd->nqd", a, tok) @ wvp.float() + c.float()).to(tokens.dtype)
+    """Plain version of the folded form the kernel computes, fp32 compute (also
+    under autocast), output in the token dtype: softmax_t(tok M)^T tok Wvp + c."""
+    with torch.autocast(device_type=tokens.device.type, enabled=False):
+        tok = tokens.float()
+        a = torch.softmax(torch.einsum("ntd,dq->nqt", tok, m.float()), dim=-1)
+        return (torch.einsum("nqt,ntd->nqd", a, tok) @ wvp.float() + c.float()).to(tokens.dtype)
 
 
 @functools.cache
@@ -106,6 +111,7 @@ def _launch(tokens: torch.Tensor, m: torch.Tensor, wvp: torch.Tensor, c: torch.T
     if err != 0:
         raise RuntimeError(f"latent_attn kernel launch failed: cudaError {err}")
     latent_cross_attention.launches += 1
+    latent_cross_attention.launches_by_dtype[DTYPE_NAMES[tokens.dtype]] += 1
     return out
 
 
@@ -129,4 +135,11 @@ def latent_cross_attention(tokens, wk, bk, wv, bv, q, wp, bias):
     return _launch(tokens, *fold_weights(wk, bk, wv, bv, q, wp, bias))
 
 
-latent_cross_attention.launches = 0   # kernel launches, from either entry point
+def reset_launches() -> None:
+    """Set the kernel's launch counts (all, and by token type, in place) to 0."""
+    latent_cross_attention.launches = 0
+    latent_cross_attention.launches_by_dtype.update(dict.fromkeys(DTYPE_NAMES.values(), 0))
+
+
+latent_cross_attention.launches_by_dtype = {}   # kernel launches by token type
+reset_launches()                                # and in all, from either entry point

@@ -63,7 +63,7 @@ def main() -> None:
     cam = torch.tensor([320.0, 320.0, 320.0, 320.0])
     solve_ops = count(lambda: solve_sync_packed(torch.from_numpy(sync), anchor, cam, torch.tensor(0.25), "disp"))
 
-    model = FlowFormerCov(FlowFormerConfig(decoder_depth=12)).eval()
+    model = FlowFormerCov(FlowFormerConfig(decoder_depth=12, inference_only=True)).eval()
     ctx, mem, maps = torch.randn(2, 8, 12, 256), torch.randn(2 * 96, 8, 128), torch.randn(2, 96, 8, 12)
     decoder_ops = count(lambda: model.memory_decoder(mem, ctx, maps))
     print(json.dumps({"solve_sync_packed_ops": solve_ops, "decoder_12_steps_ops": decoder_ops}))

@@ -264,3 +264,73 @@ def test_macvo_with_tartan_motion_net_runs_on_the_card(cuda_device):
     poses = odom.graph.frames.data["pose"][:3]
     assert len(odom.graph.frames) == 3 and np.isfinite(poses).all()
     assert odom.MotionEstimator.prev_pose.device.type == "cuda"
+
+
+def _train_setup(cuda_device, mode, dtype, lr=1e-4):
+    """FlowFormerCov (2 decoder steps, full widths) from the shipped checkpoint
+    on the card, the mode's optimizer and step, and a seeded 64x96 batch."""
+    from pathlib import Path
+
+    from macvo_tpu_torch.models.flowformer import FlowFormerConfig, FlowFormerCov, load_flax_checkpoint
+    from macvo_tpu_torch.train.step import TrainConfig, create_optimizer, make_train_step, set_matmul_precision
+
+    model = FlowFormerCov(FlowFormerConfig(decoder_depth=2, encoder_dtype=dtype, decoder_dtype=dtype))
+    load_flax_checkpoint(model, Path(__file__).parent.parent / "model" / "MACVO_FrontendCov.npz")
+    model.to(cuda_device)
+    set_matmul_precision(model)
+    cfg = TrainConfig(lr=lr, num_steps=10, training_mode=mode)
+    opt = create_optimizer(model, cfg)
+    rng = np.random.default_rng(6)
+    batch = {"img1": rng.integers(0, 256, (2, 64, 96, 3), dtype=np.uint8),
+             "img2": rng.integers(0, 256, (2, 64, 96, 3), dtype=np.uint8),
+             "gt_flow": rng.normal(0, 2, (2, 64, 96, 2)).astype(np.float16),
+             "flow_mask": rng.random((2, 64, 96, 1)) > 0.1}
+    return model, make_train_step(model, opt, cfg, cuda_device), batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+def test_cov_step_launches_the_fused_kernel_and_keeps_the_frozen_weights(cuda_device, dtype):
+    """A cov-mode step needs no gradient upstream of the covariance branch, so
+    the cost perceiver runs the fused kernel, once a step, on tokens of the
+    model's type; every parameter outside the branch stays bit-identical, and
+    the branch moves."""
+    from macvo_tpu_torch.train.step import is_trainable
+
+    model, step, batch = _train_setup(cuda_device, "cov", dtype)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    for i in range(2):
+        latent_attn.reset_launches()
+        aux = step(batch)
+        torch.cuda.synchronize()
+        assert latent_attn.latent_cross_attention.launches_by_dtype == {"fp32": 0, "bf16": 0, dtype: 1}
+        assert np.isfinite(float(aux["loss"]))
+    moved = {n for n, p in model.named_parameters() if not torch.equal(before[n], p)}
+    assert moved and all(is_trainable(n, "cov") for n in moved)
+    assert all(torch.equal(before[n], p) for n, p in model.named_parameters() if not is_trainable(n, "cov"))
+
+
+@pytest.mark.cuda
+def test_flow_steps_then_the_fused_forward_matches_the_unfused_one(cuda_device):
+    """Flow mode trains the perceiver through its unfused input stage (no
+    kernel launch during a step). After two steps a forward without gradients
+    refolds the moved weights and runs the kernel (fp32), and equals the
+    unfused forward within 1e-3 px (the kernel's fp32 error, ~1e-6, through
+    two decoder steps)."""
+    model, step, batch = _train_setup(cuda_device, "flow", "fp32", lr=1e-3)
+    perceiver = model.memory_encoder.perceiver
+    folded_at_start = perceiver._folded_key
+    launches = latent_attn.latent_cross_attention.launches
+    for _ in range(2):
+        step(batch)
+    torch.cuda.synchronize()
+    assert latent_attn.latent_cross_attention.launches == launches
+    assert perceiver._fold_key() != folded_at_start
+    x = [torch.from_numpy(batch[k]).to(cuda_device).float() / 255.0 for k in ("img1", "img2")]
+    with torch.no_grad():
+        fused = model(*x)
+    torch.cuda.synchronize()
+    assert latent_attn.latent_cross_attention.launches == launches + 1
+    unfused = model(*x)
+    for k in ("flow_final", "cov_final"):
+        torch.testing.assert_close(fused[k], unfused[k].detach(), atol=1e-3, rtol=1e-3)

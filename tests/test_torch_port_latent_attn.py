@@ -56,9 +56,21 @@ def test_plain_matches_pallas_interpret():
 def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
     args = [torch.from_numpy(a) for a in _inputs(8, 5)]
     before = latent_attn.latent_cross_attention.launches
+    by_dtype = dict(latent_attn.latent_cross_attention.launches_by_dtype)
     out = latent_attn.latent_cross_attention(*args)
     assert latent_attn.latent_cross_attention.launches == before
+    assert latent_attn.latent_cross_attention.launches_by_dtype == by_dtype
     torch.testing.assert_close(out, latent_attn.latent_cross_attention_torch(*args), rtol=0, atol=0)
+
+
+def test_reset_launches_zeroes_the_total_and_each_token_type():
+    """In place: a reference to the counts taken before a reset reads the new ones."""
+    counter = latent_attn.latent_cross_attention
+    by_dtype = counter.launches_by_dtype
+    counter.launches, by_dtype["bf16"] = 3, 3
+    latent_attn.reset_launches()
+    assert counter.launches == 0 and by_dtype == {"fp32": 0, "bf16": 0}
+    assert counter.launches_by_dtype is by_dtype
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
