@@ -80,13 +80,39 @@ Phases, each announced by a flushed, timestamped JSON line:
               In cov, eval and fp32 size the kernel is also held against its
                 plain version on the tokens and folded weights the path gave
                 its first call, at the kernel phase's tolerance for the type.
-13. kernels - one JSON line listing every ported kernel.
+13. datasets - the user's data layouts, written from the real clip into a
+              temporary directory under results/ and read through the runner's
+              build_sequence (the config's Preprocess applied):
+              kitti: the 10 frames as a KITTI odometry sequence (image_2/3,
+                calib.txt P0-P3, times.txt, poses/00.txt), MACVO_Performant.yaml
+                as shipped (fp32): SmartResizeFrame takes the frames to 376x780
+                (padded to 376x784: 4,606 pixels at 1/8); the frontend must see
+                376x780, one fp32 launch a frame, the kernel within the kernel
+                phase's fp32 tolerance of its plain version on the path's first
+                tokens, ATE (the runner's, from its result directory) at most
+                the larger of 0.05 m and twice the JAX CPU record
+                (scripts/jax_kitti_record.py).
+              general: a 480x640 crop of 4 frames as a GeneralStereo rig
+                (left/, right/, times.txt, pose file), MACVO_Fast.yaml (bf16):
+                Preprocess scales up and crops to 640x640; one bf16 launch a
+                frame, finite poses.
+              euroc: 5 frames as a raw EuRoC recording (gray 752x480, the
+                loader's rectification undone, a small L->R rotation, the
+                clip's 100 Hz IMU, ground truth at the camera stamps so the
+                loader keeps 3), EuRoC_IMU through DevicePrefetcher with
+                MACVO_Performant.yaml: every frame a StereoInertialFrame with
+                IMU samples and attitude, one fp32 launch a frame, finite poses.
+14. kernels - one JSON line listing every ported kernel.
 
 Each learned run resets the kernels' launch counters right before it and
 reads them right after: every kernel of the path must have launched. Any
 failure ends the run with a non-zero exit and without the final line, which
 is ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero.
 It writes only under ``results/`` and the kernels' build directory.
+
+The layout writers of phase 13 (``read_clip``, ``write_kitti_layout``,
+``write_general_layout``, ``euroc_raw_images``, ``write_euroc_layout``) are
+also what the port's dataset tests and ``scripts/jax_kitti_record.py`` use.
 """
 
 from __future__ import annotations
@@ -121,6 +147,10 @@ KERNEL_SOURCES = {   # kernel -> (CUDA source, the TPU kernel it replaces)
 TRAIN_EVAL_JAX_CPU = {"epe": 0.8169699311256409, "px1": 0.7096279263496399, "px3": 0.9868731498718262,
                       "nll": 2.576082468032837}
 TRAIN_EVAL_REL = 0.01
+# MACVO_Performant.yaml on the real clip written as a KITTI sequence (10 frames, Preprocess -> 376x780):
+# the JAX package on the CPU, `JAX_PLATFORMS=cpu python scripts/jax_kitti_record.py` (jax 0.9.0);
+# ATE bound: the larger of 0.05 m and twice its ATE
+KITTI_JAX_CPU = {"ATE": 0.058458222584022355, "RTE": 0.0256436887146321, "ROE": 0.21617183282237912}
 CKPT = ROOT / "model/MACVO_FrontendCov.npz"
 KERNEL_TOL = {"fp32": (1e-4, 1e-4), "bf16": (1e-2, 1.6e-2)}   # latent attention against its plain version: (atol, rtol)
 # step parity, card (cuDNN off, TF32 off) against CPU: relative loss; loss gradient in the predictions
@@ -776,31 +806,47 @@ class CroppedSequence:
         return dataclasses.replace(f, stereo=stereo)
 
 
-def run_odometry(cfg, seq, device, phase: str) -> dict:
+def run_odometry(cfg, seq, device, phase: str, system=None, saveto: Path | None = None,
+                 received: list | None = None) -> dict:
+    """Run ``seq`` through the odometry ``cfg`` builds (or ``system``), each
+    frame synced. Metrics against ``seq``'s ground truth; with ``saveto``, as
+    the runner takes them: from the result directory (poses in the body frame,
+    the ground truth interpolated onto the estimate's stamps). With
+    ``received``, each frame the odometry was handed is summed up into it:
+    its class, (H, W), device, IMU sample count and whether it has attitude."""
     import numpy as np
     import torch
 
     from macvo_tpu_torch.data import DevicePrefetcher
-    from macvo_tpu_torch.evaluation import evaluate_all
+    from macvo_tpu_torch.evaluation import evaluate_all, evaluate_sandbox
     from macvo_tpu_torch.odometry import build_odometry
 
-    system = build_odometry(cfg, device=device)
+    system = system or build_odometry(cfg, device=device)
     stamps = []
 
     def on_frame(frame, _odom):
         if device.type == "cuda":
             torch.cuda.synchronize()
         stamps.append(time.perf_counter())
+        if received is not None:
+            imu = getattr(frame, "imu", None)
+            received.append({"type": type(frame).__name__, "hw": tuple(frame.stereo.imageL.shape[1:3]),
+                             "device": frame.stereo.imageL.device.type,
+                             "imu_samples": 0 if imu is None else int(imu.acc.shape[1]),
+                             "attitude": getattr(frame, "attitude", None) is not None})
 
     if device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     start = time.perf_counter()
-    system.receive_frames(DevicePrefetcher(seq, device), on_frame_finished=on_frame)
+    system.receive_frames(DevicePrefetcher(seq, device), saveto=saveto, on_frame_finished=on_frame)
     n = len(system.graph.frames)
     est = system.graph.frames.data["pose"][:n].astype(np.float64)
-    gt = np.stack([np.asarray(seq[i].gt_pose[0]) for i in range(len(seq))]).astype(np.float64)
-    m = evaluate_all(gt, est)
+    if saveto is not None:
+        m = evaluate_sandbox(saveto)
+    else:
+        gt = np.stack([np.asarray(seq[i].gt_pose[0]) for i in range(len(seq))]).astype(np.float64)
+        m = evaluate_all(gt, est)
     frame_ms = np.diff(np.array([start] + stamps)) * 1e3
     rec = {"frames": n, "ATE_m": m["ATE"].rmse, "RTE_m_per_frame": m["RTE"].rmse,
            "ROE_deg_per_frame": m["ROE"].rmse, "frame_ms": [round(float(x), 3) for x in frame_ms],
@@ -817,6 +863,282 @@ def check_bounds(phase: str, rec: dict, bounds: dict) -> None:
     for key, metric in (("ATE_m", "ATE"), ("RTE_m_per_frame", "RTE"), ("ROE_deg_per_frame", "ROE")):
         if rec[key] > bounds[metric]:
             raise AssertionError(f"{phase}: {metric} {rec[key]} > bound {bounds[metric]}")
+
+
+# -- the user's data layouts, written from the real clip (the datasets phase, the port's tests and
+# -- scripts/jax_kitti_record.py write them with these functions) ------------------------------------
+
+CLIP_ROOT = ROOT / "assets/test_sequence/TartanAir2_abs_P000"
+CLIP_K = (320.0, 320.0, 320.0, 320.0)       # fx, fy, cx, cy of the 640x640 clip (TartanAir v2)
+CLIP_BASELINE = 0.25
+EUROC_T0_NS = 1403636579763555584           # the first camera stamp of EuRoC MH_01
+
+
+def read_clip(n: int = 10) -> dict:
+    """The real clip's first ``n`` frames as a user's files hold them: BGR
+    uint8 images, camera times (s), NED left-camera poses (N,7) float64, and
+    the 100 Hz IMU (time s, acc, gyro, global velocity)."""
+    import cv2
+    import numpy as np
+
+    def imgs(cam):
+        files = sorted((CLIP_ROOT / f"image_{cam}cam_front").glob("*.png"))[:n]
+        return [cv2.imread(str(f), cv2.IMREAD_COLOR) for f in files]
+
+    imu = {k: np.load(CLIP_ROOT / "imu" / f"{k}.npy") for k in ("imu_time", "acc", "gyro", "vel_global")}
+    return {"left": imgs("l"), "right": imgs("r"), "times_s": np.load(CLIP_ROOT / "imu/cam_time.npy")[:n],
+            "poses": np.loadtxt(CLIP_ROOT / "pose_lcam_front.txt")[:n], "imu": imu}
+
+
+def ned_to_edn(poses):
+    """NED camera poses (N,7) [t, q_xyzw] -> the same cameras' poses with EDN
+    axes in an EDN world, as (N,4,4): KITTI's and EuRoC's convention."""
+    import numpy as np
+
+    from macvo_tpu_torch.data.datasets.rectify import EDN2NED_MAT, NED2EDN_MAT
+    from macvo_tpu_torch.geometry import se3_np
+
+    mats = np.tile(np.eye(4), (len(poses), 1, 1))
+    mats[:, :3, :3] = se3_np.quat_to_matrix(np.asarray(poses, np.float64)[:, 3:])
+    mats[:, :3, 3] = poses[:, :3]
+    return NED2EDN_MAT @ mats @ EDN2NED_MAT
+
+
+def write_kitti_layout(base: Path, left, right, K, baseline: float, times_s, poses, seq: str = "00") -> Path:
+    """KITTI odometry layout under ``base``: ``sequences/<seq>/image_2``,
+    ``image_3``, ``calib.txt`` (P0-P3 of a rectified pair), ``times.txt``,
+    and ``poses/<seq>.txt`` (3x4 EDN camera matrices). Returns the sequence root."""
+    import cv2
+    import numpy as np
+
+    root = base / "sequences" / seq
+    for cam, images in (("image_2", left), ("image_3", right)):
+        (root / cam).mkdir(parents=True, exist_ok=True)
+        for i, img in enumerate(images):
+            cv2.imwrite(str(root / cam / f"{i:06d}.png"), img)
+    fx, fy, cx, cy = K
+    rows = [f"P{i}: {fx!r} 0 {cx!r} {tx!r} 0 {fy!r} {cy!r} 0 0 0 1 0"
+            for i, tx in enumerate((0.0, -fx * baseline, 0.0, -fx * baseline))]
+    (root / "calib.txt").write_text("\n".join(rows) + "\n")
+    np.savetxt(root / "times.txt", np.asarray(times_s, np.float64))
+    (base / "poses").mkdir(parents=True, exist_ok=True)
+    np.savetxt(base / "poses" / f"{seq}.txt", ned_to_edn(poses)[:, :3].reshape(-1, 12))
+    return root
+
+
+def write_general_layout(root: Path, left, right, times_s=None, poses=None) -> Path:
+    """GeneralStereo layout: ``left/``, ``right/``, optional ``times.txt`` and
+    ``pose_lcam_front.txt`` (TartanAir rows ``t q_xyzw``). Returns ``root``."""
+    import cv2
+    import numpy as np
+
+    for cam, images in (("left", left), ("right", right)):
+        (root / cam).mkdir(parents=True, exist_ok=True)
+        for i, img in enumerate(images):
+            cv2.imwrite(str(root / cam / f"{i:06d}.png"), img)
+    if times_s is not None:
+        np.savetxt(root / "times.txt", np.asarray(times_s, np.float64))
+    if poses is not None:
+        np.savetxt(root / "pose_lcam_front.txt", np.asarray(poses, np.float64))
+    return root
+
+
+def euroc_raw_images(left, right, K, T_right):
+    """What a distorted, unrectified EuRoC rig would have recorded of a
+    rectified pinhole pair (``left``, ``right``, BGR, intrinsics ``K``): the
+    EuRoC loader's own rectification (its standard cam0/cam1 distortion, the
+    L->R extrinsic ``T_right``, camera 0 at the body) undone. Gray 752x480;
+    returns (left raw, right raw, the raw K as fx, fy, cx, cy)."""
+    import cv2
+    import numpy as np
+
+    from macvo_tpu_torch.data.datasets.euroc import DIST_CAM0, DIST_CAM1, EUROC_SIZE
+
+    w, h = EUROC_SIZE
+    K_raw = np.array([[458.654, 0, 367.215], [0, 457.296, 248.375], [0, 0, 1.0]])   # EuRoC cam0
+    T_LR = np.linalg.inv(T_right)
+    R1, R2, P1, P2, *_ = cv2.stereoRectify(K_raw, DIST_CAM0, K_raw, DIST_CAM1, (w, h),
+                                           np.ascontiguousarray(T_LR[:3, :3]),
+                                           np.ascontiguousarray(T_LR[:3, 3]).reshape(3, 1),
+                                           flags=cv2.CALIB_ZERO_DISPARITY, alpha=-1)
+    grid = np.stack(np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64)), -1)
+    src_K = np.array([[K[0], 0, K[2]], [0, K[1], K[3]], [0, 0, 1.0]])
+    out = []
+    for img, D, R in ((left, DIST_CAM0, R1), (right, DIST_CAM1, R2)):
+        pts = cv2.undistortPoints(grid.reshape(-1, 1, 2), K_raw, D, R=R, P=src_K).reshape(h, w, 2)
+        gray = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+        out.append(cv2.remap(gray, pts[..., 0].astype(np.float32), pts[..., 1].astype(np.float32),
+                             cv2.INTER_LINEAR, borderMode=cv2.BORDER_REFLECT))
+    return out[0], out[1], (K_raw[0, 0], K_raw[1, 1], K_raw[0, 2], K_raw[1, 2])
+
+
+def write_euroc_layout(root: Path, left, right, K, T_right, times_ns, imu, gt) -> Path:
+    """EuRoC ASL layout: ``cam0`` / ``cam1`` (``sensor.yaml`` + ``data/<ns>.png``),
+    ``imu0/data.csv`` (``imu``: time ns, gyro, acc) and
+    ``state_groundtruth_estimate0/data.csv`` (``gt``: time ns, position,
+    quaternion xyzw, velocity; written wxyz with zero biases). Camera 0 is
+    the body; ``T_right`` is camera 1's body extrinsic. Returns ``root``."""
+    import cv2
+    import numpy as np
+    import yaml
+
+    from macvo_tpu_torch.data.datasets.euroc import DIST_CAM0, DIST_CAM1
+
+    for cam, images, T, D in (("cam0", left, np.eye(4), DIST_CAM0), ("cam1", right, T_right, DIST_CAM1)):
+        (root / cam / "data").mkdir(parents=True, exist_ok=True)
+        sensor = {"sensor_type": "camera", "rate_hz": 20,
+                  "T_BS": {"cols": 4, "rows": 4, "data": [float(x) for x in np.asarray(T).reshape(-1)]},
+                  "resolution": [int(images[0].shape[1]), int(images[0].shape[0])], "camera_model": "pinhole",
+                  "intrinsics": [float(x) for x in K], "distortion_model": "radial-tangential",
+                  "distortion_coefficients": [float(x) for x in D[:4]]}
+        (root / cam / "sensor.yaml").write_text(yaml.safe_dump(sensor, sort_keys=False))
+        for t, img in zip(times_ns, images):
+            cv2.imwrite(str(root / cam / "data" / f"{int(t)}.png"), img)
+    t_imu, gyro, acc = imu
+    (root / "imu0").mkdir(parents=True, exist_ok=True)
+    rows = np.concatenate([np.asarray(t_imu, np.float64)[:, None], gyro, acc], axis=1)
+    np.savetxt(root / "imu0" / "data.csv", rows, delimiter=",", fmt=["%d"] + ["%.17g"] * 6, comments="",
+               header="#timestamp [ns],w_RS_S_x [rad s^-1],w_RS_S_y [rad s^-1],w_RS_S_z [rad s^-1],"
+                      "a_RS_S_x [m s^-2],a_RS_S_y [m s^-2],a_RS_S_z [m s^-2]")
+    t_gt, pos, q_xyzw, vel = gt
+    rows = np.concatenate([np.asarray(t_gt, np.float64)[:, None], pos, np.roll(q_xyzw, 1, axis=1), vel,
+                           np.zeros((len(t_gt), 6))], axis=1)
+    (root / "state_groundtruth_estimate0").mkdir(parents=True, exist_ok=True)
+    np.savetxt(root / "state_groundtruth_estimate0" / "data.csv", rows, delimiter=",",
+               fmt=["%d"] + ["%.17g"] * 16, comments="",
+               header="#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m], q_RS_w [], q_RS_x [], q_RS_y [], "
+                      "q_RS_z [], v_RS_R_x [m s^-1], v_RS_R_y [m s^-1], v_RS_R_z [m s^-1], b_w_RS_S_x [rad s^-1], "
+                      "b_w_RS_S_y [rad s^-1], b_w_RS_S_z [rad s^-1], b_a_RS_S_x [m s^-2], b_a_RS_S_y [m s^-2], "
+                      "b_a_RS_S_z [m s^-2]")
+    return root
+
+
+def phase_datasets(device, size: int) -> dict:
+    """The user's data layouts (module docstring, phase 13), written from the
+    real clip into a temporary directory under results/ and read through the
+    runner's build_sequence. Returns the latent-attention launches of each run
+    by kernel name. ``size`` > 0: CPU rehearsal on a center crop of that size."""
+    import tempfile
+
+    import numpy as np
+
+    from macvo_tpu_torch.__main__ import build_sequence
+    from macvo_tpu_torch.data import StereoInertialFrame
+    from macvo_tpu_torch.data.datasets.euroc import EUROC_BASELINE
+    from macvo_tpu_torch.data.datasets.rectify import NED2EDN_MAT
+    from macvo_tpu_torch.geometry import se3_np
+    from macvo_tpu_torch.odometry import build_odometry
+    from macvo_tpu_torch.ops import latent_attn
+    from macvo_tpu_torch.utils.config import build_dynamic_config, load_config
+
+    on_card = device.type == "cuda"
+    clip = read_clip(10)
+    K = list(CLIP_K)
+    if size:      # rehearsal: a center crop, resized by Preprocess to a few dozen pixels
+        y0 = x0 = (640 - size) // 2
+        for cam in ("left", "right"):
+            clip[cam] = [np.ascontiguousarray(im[y0:y0 + size, x0:x0 + size]) for im in clip[cam]]
+        K[2], K[3] = K[2] - x0, K[3] - y0
+    launches = {"latent_cross_attention[fp32]": {}, "latent_cross_attention[bf16]": {}}
+
+    def config(name: str, seq_type: str, rehearsal_hw: tuple[int, int] | None = None):
+        """The shipped config; in a rehearsal, 2 decoder steps and the
+        sequence type's Preprocess target cut to ``rehearsal_hw``."""
+        cfg = load_config(ROOT / "configs/experiment/macvo" / name)[0]
+        cfg.Odometry.frontend.args.weight = str(CKPT)
+        if size:
+            cfg.Odometry.frontend.args.decoder_depth = 2
+            if rehearsal_hw:
+                args = getattr(cfg.Preprocess, seq_type)[0].args
+                args.height, args.width = rehearsal_hw
+        return cfg
+
+    def run(part, cfg, data, dtype, n_frames, hw):
+        seq = build_sequence(build_dynamic_config({"Sequence": data})[0], cfg)
+        if len(seq) != n_frames:
+            raise AssertionError(f"datasets {part}: {len(seq)} frames, not {n_frames}")
+        system = build_odometry(cfg, device=device)
+        perceiver = system.Frontend.runner.model.memory_encoder.perceiver
+        latent_attn.reset_launches()
+        received = []
+        with _kernel_inputs(perceiver) as seen:
+            rec = run_odometry(cfg, seq, device, f"datasets {part}", system=system, saveto=out / part,
+                               received=received)
+        rec["latent_attn_launches"] = dict(latent_attn.latent_cross_attention.launches_by_dtype)
+        rec["frontend_hw"] = sorted({f["hw"] for f in received})
+        rec["kernel_on_path_tokens"] = _check_kernel_inputs(f"datasets {part}", seen)
+        launches[f"latent_cross_attention[{dtype}]"][f"datasets.{part}"] = rec["latent_attn_launches"][dtype]
+        if rec["frontend_hw"] != [hw] or any(f["device"] != device.type for f in received):
+            raise AssertionError(f"datasets {part}: the odometry was handed {received}, not {hw} frames "
+                                 f"on {device.type}")
+        other = "bf16" if dtype == "fp32" else "fp32"
+        if on_card and (rec["latent_attn_launches"][dtype] != rec["frames"] or rec["latent_attn_launches"][other]):
+            raise AssertionError(f"datasets {part}: latent attention launches {rec['latent_attn_launches']} "
+                                 f"over {rec['frames']} frames, not one {dtype} launch a frame")
+        return received, rec
+
+    (ROOT / "results").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "results", prefix="chip_smoke_datasets_") as tmp:
+        out = Path(tmp) / "runs"
+
+        # kitti: the whole clip as a KITTI odometry sequence, MACVO_Performant as shipped
+        emit("datasets", "start", part="kitti")
+        start = time.perf_counter()
+        root = write_kitti_layout(Path(tmp) / "kitti", clip["left"], clip["right"], K, CLIP_BASELINE,
+                                  clip["times_s"], clip["poses"])
+        write_s = time.perf_counter() - start
+        hw = (376, 780) if not size else (size // 2 - 1, size)
+        _, rec = run("kitti", config("MACVO_Performant.yaml", "KITTI", hw), {"type": "KITTI", "args": {
+            "root": str(root), "gt_pose": True}}, "fp32", 10, hw)
+        rec.update(write_s=write_s, jax_cpu_record=KITTI_JAX_CPU,
+                   ate_bound_m=max(0.05, 2 * KITTI_JAX_CPU["ATE"]))
+        emit("datasets", "end", part="kitti", **rec)
+        if not size and rec["ATE_m"] > rec["ate_bound_m"]:
+            raise AssertionError(f"datasets kitti: ATE {rec['ATE_m']} m > {rec['ate_bound_m']} m")
+
+        # general: a 480x640 crop of the clip as a user's own rig, MACVO_Fast (bf16); Preprocess -> 640x640
+        emit("datasets", "start", part="general")
+        crop = slice(80, 560) if not size else slice(size // 8, size - size // 8)
+        g_root = write_general_layout(Path(tmp) / "general", [im[crop] for im in clip["left"][:4]],
+                                      [im[crop] for im in clip["right"][:4]], clip["times_s"][:4],
+                                      clip["poses"][:4])
+        fx, fy, cx, cy = K
+        hw = (640, 640) if not size else (size // 2, size // 2)
+        _, rec = run("general", config("MACVO_Fast.yaml", "GeneralStereo", hw), {"type": "GeneralStereo", "args": {
+            "root": str(g_root), "fx": fx, "fy": fy, "cx": cx, "cy": cy - crop.start, "baseline": CLIP_BASELINE,
+            "pose_file": str(g_root / "pose_lcam_front.txt")}}, "bf16", 4, hw)
+        emit("datasets", "end", part="general", **rec)
+
+        # euroc: a raw (distorted, unrectified) gray EuRoC recording of the clip, with its real 100 Hz IMU
+        emit("datasets", "start", part="euroc")
+        n = 5                              # the first and last stamps are the ground truth's ends: 3 frames
+        T_right = np.eye(4)
+        T_right[:3, :3] = se3_np.quat_to_matrix(se3_np.exp(np.array([0, 0, 0, 0.002, -0.003, 0.004]))[3:])
+        T_right[:3, 3] = (EUROC_BASELINE, 0.0005, -0.0004)
+        raw = [euroc_raw_images(l, r, K, T_right) for l, r in zip(clip["left"][:n], clip["right"][:n])]
+        t_cam = EUROC_T0_NS + np.round(clip["times_s"][:n].astype(np.float64) * 1e9).astype(np.int64)
+        imu = clip["imu"]
+        k = imu["imu_time"] <= clip["times_s"][n - 1] + 1e-6
+        R = NED2EDN_MAT[:3, :3]
+        scale = EUROC_BASELINE / CLIP_BASELINE      # the loader's baseline is EuRoC's: the world scales with it
+        gt_mats = ned_to_edn(clip["poses"][:n])
+        e_root = write_euroc_layout(
+            Path(tmp) / "euroc" / "MH_01", [r[0] for r in raw], [r[1] for r in raw], raw[0][2], T_right, t_cam,
+            (EUROC_T0_NS + np.round(imu["imu_time"][k] * 1e9).astype(np.int64), imu["gyro"][k] @ R.T,
+             imu["acc"][k] @ R.T),
+            (t_cam, gt_mats[:, :3, 3] * scale, se3_np.quat_from_matrix(gt_mats[:, :3, :3]),
+             imu["vel_global"][::10][:n] @ R.T * scale))
+        received, rec = run("euroc", config("MACVO_Performant.yaml", "EuRoC_IMU"), {"type": "EuRoC_IMU", "args": {"root": str(e_root), "gt_pose": True}},
+                       "fp32", n - 2, (480, 752))
+        rec["frame_types"] = sorted({f["type"] for f in received})
+        rec["imu_samples"] = [f["imu_samples"] for f in received]
+        rec["attitude"] = all(f["attitude"] for f in received)
+        emit("datasets", "end", part="euroc", **rec)
+        if rec["frame_types"] != [StereoInertialFrame.__name__] or not all(rec["imu_samples"]) \
+                or not rec["attitude"]:
+            raise AssertionError(f"datasets euroc: the odometry was handed {received}, not StereoInertialFrames "
+                                 "with IMU samples and attitude")
+    return launches
 
 
 def main() -> int:
@@ -1010,7 +1332,14 @@ def main() -> int:
                              f"{rec['latent_attn_launches']} times over {rec['frames']} frames")
     shutil.rmtree(trained.parent)       # the 55 MB checkpoint and its run's files
 
-    # 13. kernels
+    # 13. the user's data: KITTI, GeneralStereo and EuRoC layouts of the clip through the runner's sequence
+    emit("datasets", "start")
+    start = time.perf_counter()
+    for name, parts in phase_datasets(device, args.size).items():
+        by_phase.setdefault(name, {}).update(parts)
+    emit("datasets", "end", wall_s=time.perf_counter() - start)
+
+    # 14. kernels
     kernels = []
     for name, rec in kernel_recs.items():
         source, replaces = KERNEL_SOURCES[name.split("[")[0]]

@@ -5,9 +5,14 @@ Usage:
                               --data configs/sequence/TartanAirv2_RealAsset.yaml
     python -m macvo_tpu_torch --odom configs/experiment/baseline/TartanVO.yaml \\
                               --data configs/sequence/TartanAirv2_RealAsset.yaml
+    python -m macvo_tpu_torch --odom configs/experiment/macvo/MACVO_Performant.yaml \\
+                              --data configs/sequence/GeneralStereo_example.yaml --preload
 
 Builds the odometry class the config's ``Odometry.type`` names (``MACVO``,
-the default, or the ``TartanVO`` baseline), runs it over the sequence on
+the default, or the ``TartanVO`` baseline), reads the sequence (any
+registered loader: TartanAir v1/v2, KITTI, EuRoC, VBR, GeneralStereo,
+SyntheticStereo), applies the config's ``Preprocess`` transforms (e.g.
+``SmartResizeFrame`` for KITTI and GeneralStereo), runs it over the sequence on
 ``--device`` (``cuda`` by default), writes ``config.yaml`` (the odometry
 config, with the sequence config as ``Data``), ``poses.npy`` /
 ``ref_poses.npy`` / ``tensor_map.npz`` (and, with ``profile: true``, a trace
@@ -23,21 +28,19 @@ import time
 from pathlib import Path
 
 
-def build_sequence(data_cfg, odom_cfg, seq_from=None, seq_to=None):
-    from .data import SequenceBase
+def build_sequence(data_cfg, odom_cfg, seq_from=None, seq_to=None, preload=False):
+    """The sequence a run reads, as ``macvo.py`` builds it: clipped, then
+    wrapped in the odometry config's ``Preprocess`` transforms, then (with
+    ``preload``) read into RAM."""
+    from .data import SequenceBase, smart_transform
 
     seq = SequenceBase.from_config(data_cfg.Sequence if hasattr(data_cfg, "Sequence") else data_cfg)
     if seq_from is not None or seq_to is not None:
         seq.clip(seq_from, seq_to)
-    pre = getattr(odom_cfg, "Preprocess", None)
-    # As macvo_tpu/data/sequence.py:smart_transform reads it: a list applies to any
-    # sequence, a mapping by the sequence's type name.
-    if isinstance(pre, dict):
-        pre = pre.get(seq.name())
-    elif pre is not None and not isinstance(pre, list):
-        pre = getattr(pre, seq.name(), None)
-    if pre:
-        raise NotImplementedError(f"the runner does not apply Preprocess transforms yet; {seq.name()} needs {pre}")
+    if hasattr(odom_cfg, "Preprocess"):
+        seq = smart_transform(seq, odom_cfg.Preprocess)
+    if preload:
+        seq = seq.preload()
     return seq
 
 
@@ -49,6 +52,7 @@ def main(argv=None) -> None:
     parser.add_argument("--seq_from", type=int, default=None, help="clip start frame")
     parser.add_argument("--seq_to", type=int, default=None, help="clip end frame")
     parser.add_argument("--resultRoot", type=str, default="./results")
+    parser.add_argument("--preload", action="store_true", help="RAM-preload the sequence")
     parser.add_argument("--noeval", action="store_true", help="skip metric evaluation")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args(argv)
@@ -65,7 +69,7 @@ def main(argv=None) -> None:
         data_cfg, odom_dict["Data"] = load_config(Path(args.data))
     else:
         data_cfg = odom_cfg.Data
-    seq = build_sequence(data_cfg, odom_cfg, args.seq_from, args.seq_to)
+    seq = build_sequence(data_cfg, odom_cfg, args.seq_from, args.seq_to, args.preload)
     name = getattr(odom_cfg.Odometry, "name", "MACVO")
     out_dir = Path(args.resultRoot) / f"{name}_{time.strftime('%m_%d_%H%M%S')}"
     out_dir.mkdir(parents=True, exist_ok=True)

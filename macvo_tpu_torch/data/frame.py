@@ -4,16 +4,31 @@
 Images are channel-last ``(B,H,W,3)`` float32 in [0,1], as in the JAX
 package. Calibration (``K``, ``baseline``, ``T_BS``, ``time_ns``) and the
 ground-truth pose stay host numpy: the per-frame driver reads them on the
-host. :meth:`StereoFrame.to` moves the dense maps to a device.
+host. :meth:`StereoFrame.to` moves the dense maps to a device; the IMU and
+attitude leaves of a :class:`StereoInertialFrame` are small and stay host
+numpy, as the JAX package's ``to_device`` leaves small leaves.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence, TypeVar
 
 import numpy as np
 import torch
+
+T = TypeVar("T")
+
+
+def _collate(items: Sequence[T]) -> T:
+    """Concatenate single-item dataclasses of numpy arrays along the batch
+    axis; a field that is None in any item is None."""
+    fields = {}
+    for f in dataclasses.fields(items[0]):
+        leaves = [getattr(x, f.name) for x in items]
+        fields[f.name] = None if any(x is None for x in leaves) else np.concatenate(
+            [np.asarray(x) for x in leaves], axis=0)
+    return type(items[0])(**fields)
 
 
 @dataclasses.dataclass
@@ -98,3 +113,46 @@ class StereoFrame:
 
     def to(self, device: torch.device) -> "StereoFrame":
         return dataclasses.replace(self, stereo=self.stereo.to(device))
+
+
+@dataclasses.dataclass
+class IMUData:
+    """Inertial samples between two frames: time_ns (B,M) int64, acc (B,M,3),
+    gyro (B,M,3), gravity (B,3) — numpy."""
+
+    time_ns: np.ndarray
+    acc: np.ndarray
+    gyro: np.ndarray
+    gravity: np.ndarray
+
+    @classmethod
+    def collate(cls, items: Sequence["IMUData"]) -> "IMUData":
+        return _collate(items)
+
+
+@dataclasses.dataclass
+class AttitudeData:
+    """Ground-truth kinematics at the IMU samples: time_ns (B,M), gt_pos /
+    gt_vel (B,M,3), gt_rot (B,M,4) quaternion xyzw, and the first sample's
+    init_pos / init_vel (B,3), init_rot (B,4) — numpy."""
+
+    time_ns: np.ndarray
+    gt_pos: np.ndarray
+    gt_vel: np.ndarray
+    gt_rot: np.ndarray
+    init_pos: np.ndarray
+    init_vel: np.ndarray
+    init_rot: np.ndarray
+
+    @classmethod
+    def collate(cls, items: Sequence["AttitudeData"]) -> "AttitudeData":
+        return _collate(items)
+
+
+@dataclasses.dataclass
+class StereoInertialFrame(StereoFrame):
+    """A stereo frame with the IMU samples and attitude since the previous
+    frame; :meth:`StereoFrame.to` keeps both (host numpy)."""
+
+    imu: Optional[IMUData] = None
+    attitude: Optional[AttitudeData] = None

@@ -1,22 +1,29 @@
-"""Sequence framework: registry datasets + clip (port of ``macvo_tpu/data/sequence.py``).
+"""Sequence framework: registry datasets + clip / preload / transform
+(port of ``macvo_tpu/data/sequence.py``).
 
 Datasets register by name and are instantiated from ``{type, args}`` config
-nodes. :class:`DevicePrefetcher` decodes the next frame on a host thread and
-stages it onto the device while the current frame computes.
+nodes; a sequence can be clipped by index, preloaded into RAM by a thread
+pool and wrapped in frame transforms (:func:`smart_transform` picks them
+from an experiment's ``Preprocess`` node). :class:`DevicePrefetcher` decodes
+the next frame on a host thread and stages it onto the device while the
+current frame computes.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
-from typing import Any, Generator, Generic, TypeVar
+from typing import Any, Callable, Generator, Generic, TypeVar
 
 import numpy as np
 import torch
 
 from ..utils.config import build_dynamic_config
+from ..utils.logging import Logger
 from ..utils.registry import RegisteredConfigTestable
+from .transform import IDataTransform
 
 T_Data = TypeVar("T_Data")
 
@@ -39,6 +46,14 @@ class SequenceBase(RegisteredConfigTestable, Generic[T_Data], register=False):
         self.indices = self.indices[start_idx:end_idx:step]
         return self
 
+    def preload(self) -> "PreloadedSequence[T_Data]":
+        return PreloadedSequence(self)
+
+    def transform(self, actions):
+        if isinstance(actions, list) and len(actions) == 0:
+            return self
+        return TransformSequence(self, actions)
+
     def __len__(self) -> int:
         return int(self.indices.size)
 
@@ -58,6 +73,35 @@ class SequenceBase(RegisteredConfigTestable, Generic[T_Data], register=False):
     @classmethod
     def from_config(cls, cfg: SimpleNamespace) -> "SequenceBase":
         return cls.instantiate(cfg.type, cfg.args)
+
+
+class PreloadedSequence(SequenceBase[T_Data], register=False):
+    """RAM-cache the whole (clipped) sequence with a thread pool."""
+
+    def __init__(self, seq: SequenceBase[T_Data]) -> None:
+        Logger.info(f"Preloading {seq}")
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            frames = list(pool.map(seq.__getitem__, range(len(seq))))
+        self._frames = frames
+        super().__init__(len(frames))
+
+    def __getitem__(self, local_index: int) -> T_Data:
+        return self._frames[self.get_index(local_index)]
+
+
+class TransformSequence(SequenceBase[T_Data], register=False):
+    """Apply ``actions`` (one callable or a list, in order) to each frame as it is read."""
+
+    def __init__(self, seq: SequenceBase[T_Data], actions) -> None:
+        super().__init__(len(seq))
+        self._seq = seq
+        self._actions: list[Callable] = actions if isinstance(actions, list) else [actions]
+
+    def __getitem__(self, local_index: int) -> T_Data:
+        frame = self._seq[self.get_index(local_index)]
+        for action in self._actions:
+            frame = action(frame)
+        return frame
 
 
 class DevicePrefetcher(Generic[T_Data]):
@@ -106,3 +150,27 @@ class DevicePrefetcher(Generic[T_Data]):
             thread.join()
         if errors:
             raise errors[0]
+
+
+def smart_transform(seq: SequenceBase, trans_cfg) -> SequenceBase:
+    """Wrap ``seq`` in the transforms an experiment's ``Preprocess`` node
+    names: a list of ``{type, args}`` nodes applies to every sequence, a
+    mapping is keyed by the sequence's registry name (a name it lacks leaves
+    the sequence as it is)."""
+    if isinstance(trans_cfg, dict):
+        trans_cfg = build_dynamic_config(trans_cfg)[0]
+    elif isinstance(trans_cfg, list):
+        trans_cfg = [t if isinstance(t, SimpleNamespace) else build_dynamic_config(t)[0] for t in trans_cfg]
+
+    if isinstance(trans_cfg, list):
+        transform_cfg = trans_cfg
+    else:
+        seq_type = seq.name()
+        if not hasattr(trans_cfg, seq_type):
+            return seq
+        transform_cfg = getattr(trans_cfg, seq_type)
+
+    actions = [IDataTransform.instantiate(t.type, t.args) for t in transform_cfg]
+    if actions:
+        Logger.info("Data transforms: " + ", ".join(type(a).__name__ for a in actions))
+    return seq.transform(actions)

@@ -10,6 +10,12 @@ encodes all three (``pair_cold``).
 Weights: ``weight`` is the flax npz, converted in memory (see
 ``models/flowformer/weights.py``).
 
+Covariance recalibration: ``cov_calib`` (default ``"auto"``) names a JSON of
+per-band variance temperatures (``log10_sigma_edges``, ``tau2``, written by
+``scripts/fit_cov_temperature.py``); ``"auto"`` loads ``<weight>.calib.json``
+when it exists, a path loads that file, ``"none"`` or null turns it off. The
+temperature scales the unpadded, normalized covariance on every path.
+
 Precision: fp32 configs run fp32 with TF32 off for both cuBLAS and cuDNN
 (cuDNN convolutions default to TF32); this is the card's twin of the
 HIGHEST-precision rule of the JAX frontend. bf16 configs run under autocast.
@@ -17,6 +23,8 @@ HIGHEST-precision rule of the JAX frontend. bf16 configs run under autocast.
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from types import SimpleNamespace
 
 import torch
@@ -41,6 +49,36 @@ def flow_to_depth(flow, cov, baseline: float, fx: float, enforce_positive: bool)
         mask=(flow[..., 0:1] > 0) if enforce_positive else None)
 
 
+def load_cov_calib(calib, weight: str, device: torch.device | str = "cpu"):
+    """(log10-sigma band edges, variance temperatures) as fp32 tensors on
+    ``device``, or None: ``"auto"`` reads ``<weight>.calib.json`` if present,
+    a path reads that file (``FileNotFoundError`` if missing), ``"none"`` /
+    ``""`` / None disables."""
+    if calib in (None, "none", ""):
+        return None
+    path = Path(weight).with_suffix(".calib.json") if calib == "auto" else Path(calib)
+    if not path.exists():
+        if calib != "auto":
+            raise FileNotFoundError(f"cov_calib file not found: {path}")
+        return None
+    rec = json.loads(path.read_text())
+    return tuple(torch.tensor(rec[k], dtype=torch.float32, device=device) for k in ("log10_sigma_edges", "tau2"))
+
+
+def recalibrate(cov: torch.Tensor, calib) -> torch.Tensor:
+    """Scale the (..., 2) variance by the temperature of its log10-sigma band
+    (both channels together, so the correlation structure is kept). The band
+    search takes the left side, as ``jnp.searchsorted`` does: a value on an
+    edge belongs to the band below it."""
+    if calib is None:
+        return cov
+    edges, tau2 = calib
+    sigma2 = 0.5 * (cov[..., 0] + cov[..., 1])
+    log_sigma = 0.5 * torch.log10(torch.clamp(sigma2.float(), min=1e-24))
+    idx = torch.searchsorted(edges, log_sigma.contiguous(), right=False)
+    return cov * tau2[idx][..., None].to(cov.dtype)
+
+
 class _FlowFormerRunner:
     """Model host: builds the network on its device and runs the padded stages."""
 
@@ -55,6 +93,7 @@ class _FlowFormerRunner:
         model = FlowFormerCov(self.cfg)
         load_flax_checkpoint(model, str(config.weight))
         self.model = model.to(device).eval()
+        self.calib = load_cov_calib(getattr(config, "cov_calib", "auto"), str(config.weight), device)
         self.fp32 = self.cfg.encoder_dtype == "fp32" and self.cfg.decoder_dtype == "fp32"
         if self.fp32 and device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -63,7 +102,7 @@ class _FlowFormerRunner:
     def _decode_unpad(self, padder, feat_a, feat_b, ctx):
         out = self.model.decode(feat_a, feat_b, ctx)
         flow = padder.unpad(out["flow_final"])
-        cov = padder.unpad(normalize_cov(out["cov_final"]))
+        cov = recalibrate(padder.unpad(normalize_cov(out["cov_final"])), self.calib)
         return flow, cov
 
     def depth(self, img_l, img_r):
@@ -141,3 +180,6 @@ class FlowFormerCovFrontend(IFrontend):
             "enforce_positive_disparity": lambda b: isinstance(b, bool),
             "decoder_depth": lambda v: isinstance(v, int),
         })
+        calib = getattr(config, "cov_calib", None)
+        if calib is not None and not isinstance(calib, str):
+            raise ValueError(f"{cls.__name__}: config key 'cov_calib' has invalid value {calib!r}")

@@ -31,10 +31,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,t", [(12800, 100), (37, 1), (5, 333), (3, 512), (1001, 100), (131, 17)])
+@pytest.mark.parametrize("n,t", [(12800, 100), (37, 1), (5, 333), (3, 512), (1001, 100), (131, 17),
+                                 (4606, 78), (9212, 78), (5640, 96)])
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 1e-4), (torch.bfloat16, 1e-2, 1.6e-2)])
 def test_latent_attn_kernel_matches_plain(cuda_device, n, t, dtype, atol, rtol):
-    """Kernel vs plain version; (12800, 100) is the 640x640 shape. fp32: the
+    """Kernel vs plain version; (12800, 100) is the 640x640 shape, (4606, 78)
+    and (9212, 78) a KITTI frame at 376x780 (depth, pair), (5640, 96) a EuRoC
+    frame at 480x752. fp32: the
     folded form sums in another order (1e-4). bf16 output: at most two bf16
     roundings apart (rtol 2^-6)."""
     args = [torch.from_numpy(a).to(cuda_device) for a in _inputs(n, t)]
@@ -264,6 +267,38 @@ def test_macvo_with_tartan_motion_net_runs_on_the_card(cuda_device):
     poses = odom.graph.frames.data["pose"][:3]
     assert len(odom.graph.frames) == 3 and np.isfinite(poses).all()
     assert odom.MotionEstimator.prev_pose.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_macvo_on_a_kitti_layout_runs_on_the_card(cuda_device, tmp_path):
+    """The runner's sequence on the first 3 frames of the clip written as a
+    KITTI layout: MACVO_Performant's shipped Preprocess takes them to 376x780,
+    the frontend (2 decoder steps) pads them to 376x784 and launches the fp32
+    kernel once a frame on 4,606 or 9,212 pixels; every pose is finite."""
+    from pathlib import Path
+
+    import chip_smoke
+    from macvo_tpu_torch.__main__ import build_sequence
+    from macvo_tpu_torch.data import DevicePrefetcher
+    from macvo_tpu_torch.odometry import MACVO
+    from macvo_tpu_torch.utils.config import build_dynamic_config, load_config
+
+    root = Path(__file__).parent.parent
+    clip = chip_smoke.read_clip(3)
+    seq_root = chip_smoke.write_kitti_layout(tmp_path, clip["left"], clip["right"], chip_smoke.CLIP_K,
+                                             chip_smoke.CLIP_BASELINE, clip["times_s"], clip["poses"])
+    cfg = load_config(root / "configs/experiment/macvo/MACVO_Performant.yaml")[0]
+    cfg.Odometry.frontend.args.weight = str(root / "model/MACVO_FrontendCov.npz")
+    cfg.Odometry.frontend.args.decoder_depth = 2
+    data = build_dynamic_config({"Sequence": {"type": "KITTI", "args": {"root": str(seq_root), "gt_pose": True}}})[0]
+    seq = build_sequence(data, cfg)
+    assert seq[0].stereo.imageL.shape == (1, 376, 780, 3)
+    odom = MACVO.from_config(cfg, device=cuda_device)
+    latent_attn.reset_launches()
+    odom.receive_frames(DevicePrefetcher(seq, cuda_device))
+    assert latent_attn.latent_cross_attention.launches_by_dtype == {"fp32": 3, "bf16": 0}
+    poses = odom.graph.frames.data["pose"][:3]
+    assert len(odom.graph.frames) == 3 and np.isfinite(poses).all()
 
 
 def _train_setup(cuda_device, mode, dtype, lr=1e-4):

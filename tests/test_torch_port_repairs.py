@@ -4,8 +4,8 @@
   gradient is wanted, as the JAX package trains it (``fused_input=False``).
 * ``TartanMotionNet`` serves as MAC-VO's motion model (device passed on,
   poses chained on one device).
-* The runner refuses a ``Preprocess`` it would have to apply, list form
-  included, until the data transforms are ported.
+* The runner applies a ``Preprocess`` as the JAX runner does, list form
+  included (it refused any that would apply until the data layer was ported).
 * The runner evaluates against ground truth interpolated onto the estimate's
   timestamps (``geometry/interp.py``, ``evaluation/trajectory.py``).
 * The runner writes ``config.yaml``, and ``profile: true`` writes a trace of
@@ -162,11 +162,11 @@ def test_macvo_runs_with_tartan_motion_net_on_the_cpu():
     ({"KITTI": [{"type": "SmartResizeFrame", "args": {"height": 64, "width": 64, "interp": "nearest"}}]}, False),
     ([], False),
 ])
-def test_runner_refuses_a_preprocess_that_would_apply(preprocess, applies):
+def test_runner_applies_the_preprocess_it_names(preprocess, applies):
     """A list-form Preprocess applies to every sequence, a mapping only to the
-    sequence type it names (macvo_tpu/data/sequence.py:smart_transform). The
-    port has no transforms yet, so it raises on any that would apply and runs
-    the sequence untouched otherwise."""
+    sequence type it names (macvo_tpu/data/sequence.py:smart_transform): the
+    runner's sequence gives 64x64 frames where the transform applies and the
+    clip's own 640x640 frames where it does not."""
     from macvo_tpu_torch.__main__ import build_sequence
     from macvo_tpu_torch.utils.config import build_dynamic_config
 
@@ -174,11 +174,10 @@ def test_runner_refuses_a_preprocess_that_would_apply(preprocess, applies):
         "root": str(ROOT / "assets/test_sequence/TartanAir2_abs_P000"), "compressed": True,
         "gtFlow": False, "gtDepth": False, "gtPose": True}}})[0]
     odom = build_dynamic_config({"Odometry": {}, "Preprocess": preprocess})[0]
-    if applies:
-        with pytest.raises(NotImplementedError, match="SmartResizeFrame"):
-            build_sequence(data, odom)
-    else:
-        assert len(build_sequence(data, odom)) == 10
+    seq = build_sequence(data, odom)
+    assert len(seq) == 10
+    assert seq[3].stereo.imageL.shape == ((1, 64, 64, 3) if applies else (1, 640, 640, 3))
+    assert seq[3].stereo.imageR.shape == seq[3].stereo.imageL.shape
 
 
 def _euroc_like(seed=0, hz=20.0):
