@@ -20,7 +20,9 @@ Phases, each announced by a flushed, timestamped JSON line:
               (bf16 and fp32), through both entry points (folded weights, as
               the main path calls it, and the JAX signature); the local
               correlation at the five shapes of a 640x640 PWC forward and an
-              odd one.
+              odd one; its backward kernel (both gradients in one launch) at
+              the five shapes of a trainer batch (4x320x448) and of a 640x640
+              forward, a second run bit-identical to the first.
 4. network  - FlowFormerCov (fp32, shipped checkpoint, 12 steps) on a 64x96
               crop of a real pair, and the three TartanVO networks (PWC and
               stereo at 128x192, pose net at 112x160): the card against the CPU.
@@ -102,7 +104,30 @@ Phases, each announced by a flushed, timestamped JSON line:
                 loader keeps 3), EuRoC_IMU through DevicePrefetcher with
                 MACVO_Performant.yaml: every frame a StereoInertialFrame with
                 IMU samples and attitude, one fp32 launch a frame, finite poses.
-14. kernels - one JSON line listing every ported kernel.
+14. dense   - FlowFormerCovMatcher and FlowFormerCovDepth (fp32, shipped
+              checkpoint, 12 decoder steps) on the clip with its ground truth:
+              evaluate_flow / evaluate_flowcov over the 9 pairs and
+              evaluate_depth / evaluate_depthcov over the 10 frames, every field
+              within 1 % of the JAX CPU record (scripts/jax_dense_record.py),
+              one fp32 latent-attention launch an estimate, the EPE beside the
+              JAX package's pin of the checkpoint (tests/test_real_asset.py:218);
+              FlowFormerMatcher / FlowFormerDepth give the cov variants' flow and
+              depth; ApplyGTMatchCov and ApplyGTMatchMask around FlowFormerMatcher
+              and ApplyGTDepthCov around GTDepth give finite metrics.
+15. tartanvo_cov - TartanVOCovMatcher (PWC + RAFT-style covariance) with
+              seeded random weights (``random:0``; the trained checkpoint does not
+              fit in the chip copy) on the clip: the card against the CPU on the
+              first pair, evaluate_flowcov finite, 6 correlation launches a pair.
+16. train_tvo - the TartanVO trainer (python -m macvo_tpu_torch.train.tartanvo,
+              through its main): 3 SyntheticStereo seq_* layouts written into a
+              temporary directory, 3 steps of each mode at batch 4 on 320x448
+              crops with their evaluations; finite losses, backward-kernel
+              launches 5 a flow step, 1 a flowcov step, 0 a stereo step, the
+              flowcov run's pwc bit-identical to the flow checkpoint it restored;
+              steady ms a step and peak memory; then one fp32 flow step on a
+              2x64x128 batch, card (cuDNN off) against CPU, within the step-parity
+              bounds of phase 12.
+17. kernels - one JSON line listing every ported kernel.
 
 Each learned run resets the kernels' launch counters right before it and
 reads them right after: every kernel of the path must have launched. Any
@@ -140,7 +165,29 @@ CORR_ODD = (2, 48, 37, 53)
 KERNEL_SOURCES = {   # kernel -> (CUDA source, the TPU kernel it replaces)
     "latent_cross_attention": ("macvo_tpu_torch/csrc/latent_attn.cu", "macvo_tpu/ops/latent_attn.py:36"),
     "local_correlation": ("macvo_tpu_torch/csrc/correlation.cu", "macvo_tpu/ops/correlation.py:46"),
+    # not a Pallas kernel: the JAX package's VJP of its XLA twin
+    "local_correlation_backward": ("macvo_tpu_torch/csrc/correlation_bwd.cu", "macvo_tpu/ops/correlation.py:126"),
 }
+# (B, C, H, W) of the five correlation calls of a PWC forward on a trainer batch (4x320x448), then at 640x640
+CORR_BWD_SHAPES = {"trainer 4x320x448": [(4, 32, 80, 112), (4, 64, 40, 56), (4, 96, 20, 28), (4, 128, 10, 14),
+                                         (4, 196, 5, 7)],
+                   "640x640": CORR_SHAPES}
+# The four evaluate_* of FlowFormerCovMatcher / FlowFormerCovDepth (fp32, model/MACVO_FrontendCov.npz, 12
+# decoder steps) on the 10-frame clip at 640x640: the JAX package on the CPU,
+# `JAX_PLATFORMS=cpu python scripts/jax_dense_record.py` (jax 0.9.0, 150 s)
+DENSE_JAX_CPU = {
+    "flow": {"masked_epe": 3.319737103250292, "epe": 3.319737103250292, "px1": 0.41795383559332955,
+             "px3": 0.7426673703723483, "px5": 0.8662996424569024},
+    "flowcov": {"masked_nll": 7.048918644587199, "q25_nll": 0.341317527823978, "q50_nll": 1.5938520828882854,
+                "q75_nll": 3.503373901049296},
+    "depth": {"masked_err": 2.2602227926254272, "err_25": 0.00885327160358429, "err_50": 0.030036240816116333,
+              "err_75": 0.2215334177017212},
+    "depthcov": {"masked_nll": 13.011934679746627, "q25_nll": -6.733919095993042, "q50_nll": -4.457796481251717,
+                 "q75_nll": 6.072745704650879}}
+DENSE_REL = 0.01
+# The JAX package's accuracy pin of the shipped checkpoint's flow EPE on the clip (tests/test_real_asset.py:218:
+# model/MACVO_FrontendCov.eval.json's 3.3079 px x 1.2 + 0.5); an accuracy figure, reported beside the port's EPE
+DENSE_EPE_PIN = 3.3079 * 1.2 + 0.5
 # make_eval_fn over the Eval pairs of configs/train/FlowFormerCov_synth_cov.yaml (12 pairs, 240x320, 12
 # decoder steps) with model/MACVO_FrontendCov.npz in fp32: the JAX package on the CPU,
 # `JAX_PLATFORMS=cpu python scripts/jax_train_eval_record.py` (jax 0.9.0)
@@ -529,15 +576,27 @@ def step_parity(device, crop: dict, cudnn: bool) -> dict:
     # loss gradient: compared wherever the CPU's residual exceeds the two devices' prediction difference
     decided = cpu["residual"].abs() > (card["residual"] - cpu["residual"]).abs()
     ct_err = float(((card["cotangent"] - cpu["cotangent"]).abs() * decided).max()) / float(cpu["cotangent"].abs().max())
+    return {"crop_hwb": list(crop["img1"].shape[1:3]) + [int(crop["img1"].shape[0])], "cudnn": cudnn,
+            "loss_grad_rel_err": ct_err, "loss_grad_within_rounding": int((~decided).sum()),
+            "loss_grad_elements": int(decided.numel()), **_step_errors(cpu, card, tcfg.clip)}
+
+
+def _step_errors(cpu: dict, card: dict, clip_norm: float) -> dict:
+    """Card against CPU after one step (each a dict of loss, grads, lr,
+    update and weights before the step, by parameter name): the loss, each
+    leaf's gradient over its scale (at least 1e-4 of the largest), and each
+    weight's update where the CPU's clipped gradient is far from 0 (1e-2 of
+    its leaf's scale, 100 Adam eps), so both first Adam steps move the weight
+    by lr in one direction: over 1e-3 lr + 2 ulps (each device rounds the new
+    weight twice: decay, then the Adam update)."""
+    import torch
+
     gh = cpu["grads"]
     gmax = max(float(g.abs().max()) for g in gh.values())
     leaf = sorted(((float((card["grads"][n] - g).abs().max()) / max(float(g.abs().max()), 1e-4 * gmax), n)
                    for n, g in gh.items()), reverse=True)
-    # updates: compared where the CPU's clipped gradient is far from 0 (1e-2 of its leaf's scale, 100 Adam
-    # eps), so both first Adam steps move the weight by lr in one direction; within 1e-3 lr + 2 ulps (each
-    # device rounds the new weight twice: decay, then the Adam update)
     norm = float(torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in gh.values()])))
-    clip = min(1.0, tcfg.clip / norm)
+    clip = min(1.0, clip_norm / norm)
     lr = cpu["lr"]
     n_checked = n_over = 0
     upd_err = 0.0
@@ -550,15 +609,11 @@ def step_parity(device, crop: dict, cudnn: bool) -> dict:
         n_checked += int(sure.sum())
         n_over += int((rel > 1).sum())
         upd_err = max(upd_err, float(rel.max()) if rel.numel() else 0.0)
-    n_weights = sum(g.numel() for g in gh.values())
-    return {"crop_hwb": list(crop["img1"].shape[1:3]) + [int(crop["img1"].shape[0])], "cudnn": cudnn, "lr": lr,
-            "loss": {"cpu": cpu["loss"], "card": card["loss"]},
+    return {"lr": lr, "loss": {"cpu": cpu["loss"], "card": card["loss"]},
             "loss_rel_err": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
-            "loss_grad_rel_err": ct_err, "loss_grad_within_rounding": int((~decided).sum()),
-            "loss_grad_elements": int(decided.numel()),
             "grad_rel_err": leaf[0][0], "worst_leaves": [{"rel_err": e, "leaf": n} for e, n in leaf[:3]],
             "update_err_share_of_bound": upd_err, "updates_checked": n_checked, "updates_over": n_over,
-            "weights": n_weights,
+            "weights": sum(g.numel() for g in gh.values()),
             "updates_beyond_1e-3_lr": sum(int(((card["update"][n] - cpu["update"][n]).abs() > 1e-3 * lr).sum())
                                           for n in gh)}
 
@@ -1141,6 +1196,346 @@ def phase_datasets(device, size: int) -> dict:
     return launches
 
 
+# -- phases 14-16: the dense matchers and depths, TartanVOCovMatcher, the TartanVO trainer; and the
+# -- correlation backward's check of phase 3 -----------------------------------------------------
+
+def correlation_bwd_bound_ms(b: int, c: int, h: int, w: int) -> tuple[float, str]:
+    """Least time for one backward call: f1, f2 and g read once, both gradients
+    written once ((4C + 81) floats a pixel), against 4 * 81 * C FLOPs a pixel
+    at the fp32 rate."""
+    pixels = b * h * w
+    t_bytes = (4 * c + 81) * pixels * 4 / H100["bytes_per_s"] * 1e3
+    t_ops = 4 * 81 * c * pixels / H100["flops"]["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_correlation_bwd(device, shape_sets: dict, timed: bool) -> dict:
+    """local_correlation_backward kernel vs its plain version at each shape
+    (both gradients, atol = rtol = 1e-5: sums over the 81 displacements in
+    another order), and a second run bit-identical to the first. The record
+    sums ms, plain ms and bound over the shapes of the first set (a trainer
+    step's five calls); the other sets are in the emitted lines."""
+    import torch
+
+    from macvo_tpu_torch.ops import correlation
+
+    gen = torch.Generator().manual_seed(2)
+    sums = {}
+    for set_name, shapes in shape_sets.items():
+        total = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+        bound_by = set()
+        for shape in shapes:
+            b, _, h, w = shape
+            f1, f2 = (torch.randn(shape, generator=gen).to(device) for _ in range(2))
+            g = torch.randn((b, 81, h, w), generator=gen).to(device)
+            g1, g2 = correlation.local_correlation_backward(f1, f2, g)
+            h1, h2 = correlation.local_correlation_backward(f1, f2, g)
+            r1, r2 = correlation.local_correlation_bwd_torch(f1, f2, g)
+            _sync(device)
+            err = max(float((g1 - r1).abs().max()), float((g2 - r2).abs().max()))
+            ok = all(bool(((o - r).abs() <= 1e-5 + 1e-5 * r.abs()).all()) for o, r in ((g1, r1), (g2, r2)))
+            same = bool(torch.equal(g1, h1) and torch.equal(g2, h2))
+            rec = {"set": set_name, "shape_bchw": list(shape), "max_abs_err": err, "atol": 1e-5, "rtol": 1e-5,
+                   "bit_identical_rerun": same}
+            rec["bound_ms"], rec["bound_by"] = correlation_bwd_bound_ms(*shape)
+            if timed:
+                rec["ms"] = cuda_time_ms(lambda: correlation.local_correlation_backward(f1, f2, g), 50)
+                rec["device_ms"] = graph_time_ms(lambda: correlation.local_correlation_backward(f1, f2, g), 50)
+                rec["plain_ms"] = cuda_time_ms(lambda: correlation.local_correlation_bwd_torch(f1, f2, g), 10)
+                rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+                rec["device_bound_share"] = rec["bound_ms"] / rec["device_ms"]
+            emit("kernel", "check", kernel="local_correlation_backward", agrees=ok and same, **rec)
+            if not (ok and same):
+                raise AssertionError(f"local_correlation_backward: disagrees with its plain version or between "
+                                     f"two runs ({rec})")
+            total["max_abs_err"] = max(total["max_abs_err"], err)
+            bound_by.add(rec["bound_by"])
+            for key in ("ms", "device_ms", "plain_ms", "bound_ms"):
+                total[key] += rec.get(key, 0.0)
+        total["bound_by"] = " and ".join(sorted(bound_by))
+        if timed:
+            total["bound_share"] = total["bound_ms"] / total["ms"]
+            total["device_bound_share"] = total["bound_ms"] / total["device_ms"]
+        else:
+            total["ms"] = total["device_ms"] = total["plain_ms"] = None
+        emit("kernel", "sum", kernel="local_correlation_backward", set=set_name, **total)
+        sums[set_name] = total
+    first = next(iter(shape_sets))
+    return {"local_correlation_backward": {**sums[first], "shapes": first,
+                                           "other_sets": {k: v for k, v in sums.items() if k != first}}}
+
+
+class Counted:
+    """A module whose ``estimate`` calls are counted."""
+
+    def __init__(self, module) -> None:
+        self.module, self.calls = module, 0
+        self.provide_cov = module.provide_cov
+
+    def estimate(self, *frames):
+        self.calls += 1
+        return self.module.estimate(*frames)
+
+
+def _clip_frames(device, size: int, n: int = 10) -> list:
+    """The first ``n`` frames of the real clip with their ground truth, on
+    ``device`` (a center crop of ``size`` in a rehearsal)."""
+    from macvo_tpu_torch.data.datasets.tartanair import TartanAirV2
+
+    seq = TartanAirV2({"root": str(CLIP_ROOT), "compressed": True, "gtFlow": True, "gtDepth": True,
+                       "gtPose": True})
+    seq = CroppedSequence(seq, size) if size else seq
+    return [seq[i].to(device) for i in range(n)]
+
+
+def _rel_err(rec: dict, ref: dict) -> dict:
+    """Relative difference of each field of ``rec`` to ``ref``."""
+    return {k: abs(rec[k] - ref[k]) / abs(ref[k]) for k in ref}
+
+
+def phase_dense(device, size: int) -> dict:
+    """FlowFormerCovMatcher / FlowFormerCovDepth (fp32, shipped checkpoint, 12
+    decoder steps) through the four evaluate_* on the clip: within 1 % of the
+    JAX CPU record, one fp32 latent-attention launch an estimate; the plain
+    variants give the same flow and depth; the ApplyGT modifiers give finite
+    metrics. Returns the latent-attention launches by part."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from macvo_tpu_torch.evaluation import dense
+    from macvo_tpu_torch.modules import IMatcher, IStereoDepth
+    from macvo_tpu_torch.ops import latent_attn
+    from macvo_tpu_torch.utils.config import build_dynamic_config
+
+    on_card = device.type == "cuda"
+    frames = _clip_frames(device, size)
+    args = {"weight": str(CKPT), "enc_dtype": "fp32", "dec_dtype": "fp32", "decoder_depth": 2 if size else 12,
+            "enforce_positive_disparity": False}
+    cfg = build_dynamic_config(args)[0]
+    matcher = Counted(IMatcher.instantiate("FlowFormerCovMatcher", cfg, device=device))
+    depth = Counted(IStereoDepth.instantiate("FlowFormerCovDepth", cfg, device=device))
+    latent_attn.reset_launches()
+    _sync(device)
+    start = time.perf_counter()
+    rec = {"flow": dense.evaluate_flow(matcher, frames), "flowcov": dense.evaluate_flowcov(matcher, frames),
+           "depth": dense.evaluate_depth(depth, frames), "depthcov": dense.evaluate_depthcov(depth, frames)}
+    _sync(device)
+    rec = {k: dataclasses.asdict(v) for k, v in rec.items()}
+    launches = dict(latent_attn.latent_cross_attention.launches_by_dtype)
+    estimates = matcher.calls + depth.calls
+    out = {"wall_s": time.perf_counter() - start, "estimates": estimates, "latent_attn_launches": launches,
+           "frames": len(frames), "decoder_depth": args["decoder_depth"], **rec,
+           "epe_pin_px": DENSE_EPE_PIN, "epe_vs_pin": rec["flow"]["epe"] / DENSE_EPE_PIN}
+    if not size:
+        out["jax_cpu_record"] = DENSE_JAX_CPU
+        out["rel_err"] = {k: _rel_err(rec[k], DENSE_JAX_CPU[k]) for k in DENSE_JAX_CPU}
+        out["rel_bound"] = DENSE_REL
+    emit("dense", "end", part="FlowFormerCovMatcher + FlowFormerCovDepth", **out)
+    if not all(np.isfinite(v) for part in rec.values() for v in part.values()):
+        raise AssertionError(f"dense: non-finite metrics {rec}")
+    if not size and max(e for part in out["rel_err"].values() for e in part.values()) > DENSE_REL:
+        raise AssertionError(f"dense: metrics not within {DENSE_REL:.0%} of the JAX CPU record: {out['rel_err']}")
+    if on_card and (launches["fp32"] != estimates or launches["bf16"]):
+        raise AssertionError(f"dense: {launches} latent-attention launches for {estimates} estimates")
+
+    # the plain variants: the same flow and depth (the same weights and path)
+    plain_m = IMatcher.instantiate("FlowFormerMatcher", cfg, device=device)
+    plain_d = IStereoDepth.instantiate("FlowFormerDepth", cfg, device=device)
+    f0, f1 = frames[0].stereo, frames[1].stereo
+    diffs = {"flow": float((plain_m.estimate(f0, f1).flow - matcher.module.estimate(f0, f1).flow).abs().max()),
+             "depth": float((plain_d.estimate(f0).depth - depth.module.estimate(f0).depth).abs().max())}
+    emit("dense", "check", part="FlowFormerMatcher / FlowFormerDepth vs the cov variants", max_abs_diff=diffs)
+    if max(diffs.values()) > 1e-5:
+        raise AssertionError(f"dense: the plain variants differ from the cov variants by {diffs}")
+
+    # the ApplyGT modifiers
+    def around(inner, inner_args):
+        return build_dynamic_config({"module": {"type": inner, "args": inner_args}})[0]
+
+    latent_attn.reset_launches()
+    gt = {"ApplyGTMatchCov(FlowFormerMatcher).flowcov": dense.evaluate_flowcov(
+              IMatcher.instantiate("ApplyGTMatchCov", around("FlowFormerMatcher", args), device=device), frames),
+          "ApplyGTMatchMask(FlowFormerMatcher).flow": dense.evaluate_flow(
+              IMatcher.instantiate("ApplyGTMatchMask", around("FlowFormerMatcher", args), device=device),
+              frames, use_gt_mask=True),
+          "ApplyGTDepthCov(GTDepth).depthcov": dense.evaluate_depthcov(
+              IStereoDepth.instantiate("ApplyGTDepthCov", around("GTDepth", {}), device=device), frames)}
+    gt = {k: dataclasses.asdict(v) for k, v in gt.items()}
+    gt_launches = latent_attn.latent_cross_attention.launches_by_dtype["fp32"]
+    emit("dense", "end", part="ApplyGT modifiers", latent_attn_launches=gt_launches, **gt)
+    if not all(np.isfinite(v) for part in gt.values() for v in part.values()):
+        raise AssertionError(f"dense: ApplyGT modifiers gave non-finite metrics {gt}")
+    del matcher, depth, plain_m, plain_d
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"latent_cross_attention[fp32]": {f"dense (4 evaluate_*, {estimates} estimates)": launches["fp32"],
+                                             "dense.ApplyGT (FlowFormerMatcher, 2 evaluate_*)": gt_launches}}
+
+
+def phase_tartanvo_cov(device, size: int) -> dict:
+    """TartanVOCovMatcher with seeded random weights (random:0) on the clip:
+    the card against the CPU on the first pair (1e-4 of each output's
+    magnitude, at least 1; NaN margins and masks equal), evaluate_flowcov over
+    the 9 pairs finite, 6 correlation launches a pair. Returns the launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from macvo_tpu_torch.evaluation import dense
+    from macvo_tpu_torch.modules import TartanVOCovMatcher
+    from macvo_tpu_torch.ops import correlation
+    from macvo_tpu_torch.utils.config import build_dynamic_config
+
+    frames = _clip_frames(device, size)
+    cfg = build_dynamic_config({"weight": "random:0"})[0]
+    card = Counted(TartanVOCovMatcher(cfg, device=device))
+    cpu = TartanVOCovMatcher(cfg, device="cpu")
+    f0, f1 = frames[0].stereo, frames[1].stereo
+    ours = card.module.estimate(f0, f1)
+    ref = cpu.estimate(f0.to(torch.device("cpu")), f1.to(torch.device("cpu")))
+    errs = {}
+    for key in ("flow", "cov", "mask"):
+        a, b = getattr(ours, key).cpu(), getattr(ref, key)
+        if not torch.equal(torch.isnan(a) if a.is_floating_point() else a, torch.isnan(b) if b.is_floating_point() else b):
+            raise AssertionError(f"tartanvo_cov: {key} NaN positions or mask differ between the card and the CPU")
+        if a.is_floating_point():
+            fin = torch.isfinite(b)
+            errs[key] = float((a[fin] - b[fin]).abs().max()) / max(1.0, float(b[fin].abs().max()))
+    emit("tartanvo_cov", "check", part="card vs CPU, first pair", weight="random:0", rel_err=errs, bound=1e-4,
+         shape=list(ours.flow.shape))
+    if max(errs.values()) > 1e-4:
+        raise AssertionError(f"tartanvo_cov: card vs CPU differ by {errs}")
+    correlation.local_correlation.launches = 0
+    _sync(device)
+    start = time.perf_counter()
+    perf = dataclasses.asdict(dense.evaluate_flowcov(card, frames))
+    _sync(device)
+    launches = correlation.local_correlation.launches
+    rec = {"wall_s": time.perf_counter() - start, "pairs": card.calls, "correlation_launches": launches,
+           "flowcov": perf}
+    emit("tartanvo_cov", "end", **rec)
+    if not all(np.isfinite(v) for v in perf.values()):
+        raise AssertionError(f"tartanvo_cov: non-finite evaluate_flowcov {perf}")
+    if device.type == "cuda" and launches != 6 * card.calls:
+        raise AssertionError(f"tartanvo_cov: {launches} correlation launches for {card.calls} pairs, not 6 a pair")
+    return {"local_correlation": {f"tartanvo_cov ({card.calls} pairs)": launches}}
+
+
+def tvo_step_parity(device) -> dict:
+    """One fp32 flow step of the TartanVO trainer (PWCFlowNet, random:0, a
+    seeded 2x64x128 batch) on the CPU and on ``device`` with cuDNN off: the
+    loss, each leaf's gradient (through the backward kernel on the card) and
+    each weight's update, against phase 12's step-parity bounds."""
+    import numpy as np
+    import torch
+
+    from macvo_tpu_torch.data.datasets.train import upcast_batch
+    from macvo_tpu_torch.ops import correlation
+    from macvo_tpu_torch.train import tartanvo as tt
+
+    rng = np.random.default_rng(0)
+    batch = {"img1": (rng.random((2, 64, 128, 3)) * 255).round().astype(np.uint8),
+             "img2": (rng.random((2, 64, 128, 3)) * 255).round().astype(np.uint8),
+             "gt_flow": rng.normal(0, 4.0, size=(2, 64, 128, 2)).astype(np.float16)}
+    res = {}
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        for dev in (torch.device("cpu"), device):
+            model, params = tt.build_model("flow", dev)
+            opt = tt.make_optimizer(params, 1, 2e-4)
+            before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+            bwd = correlation.local_correlation_backward.launches
+            loss, _ = tt.flow_loss(model, upcast_batch(tt.with_mask(batch), dev))
+            loss.backward()
+            grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+            opt.step()
+            res[dev.type] = {"loss": float(loss.detach()), "grads": grads, "lr": opt.adamw.param_groups[0]["lr"],
+                             "bwd_launches": correlation.local_correlation_backward.launches - bwd,
+                             "update": {n: p.detach().cpu() - before[n] for n, p in model.named_parameters()},
+                             "weights": before}
+    finally:
+        torch.backends.cudnn.enabled = enabled
+    return {"crop_hwb": [64, 128, 2], "cudnn": False, "backward_launches": res[device.type]["bwd_launches"],
+            **_step_errors(res["cpu"], res[device.type], 1.0)}
+
+
+def phase_train_tvo(device, size: int) -> dict:
+    """The TartanVO trainer, ``python -m macvo_tpu_torch.train.tartanvo``
+    through its ``main``, 3 steps of each mode at batch 4 on 320x448 crops of
+    3 SyntheticStereo ``seq_*`` layouts written into a temporary directory
+    (flowcov restores the flow run's PWC): finite losses; backward kernel
+    launches 5 a flow step, 1 a flowcov step, 0 a stereo step; flowcov's pwc
+    bit-identical to what it restored; steady ms a step and peak memory; then
+    one fp32 flow step card against CPU. Returns the launches of both
+    correlation kernels by mode."""
+    import tempfile
+
+    import numpy as np
+
+    from macvo_tpu_torch.data.datasets.synthetic import write_tartanair_layout
+    from macvo_tpu_torch.ops import correlation
+    from macvo_tpu_torch.train import tartanvo as tt
+
+    on_card = device.type == "cuda"
+    h, w, batch = (320, 448, 4) if not size else (64, 128, 2)
+    per_step = {"flow": 5, "flowcov": 1, "stereo": 0}
+    launches = {"local_correlation": {}, "local_correlation_backward": {}}
+    (ROOT / "results").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "results", prefix="chip_smoke_train_tvo_") as tmp:
+        start = time.perf_counter()
+        for i in range(3):
+            write_tartanair_layout(Path(tmp) / "data" / f"seq_{i:03d}", {"n_frames": 3, "width": w, "height": h,
+                                                                         "seed": 3 + i, "traj_seed": i})
+        emit("train_tvo", "check", part="layouts", write_s=time.perf_counter() - start, sequences=3, frames=3,
+             hw=[h, w])
+        for mode in ("flow", "flowcov", "stereo"):
+            out = Path(tmp) / f"TartanVO_{mode}.npz"
+            argv = ["--mode", mode, "--data", str(Path(tmp) / "data"), "--steps", "3", "--batch", str(batch),
+                    "--holdout", "1", "--eval-freq", "3", "--height", str(h), "--width", str(w), "--out", str(out),
+                    "--device", device.type]
+            if mode == "flowcov":
+                argv += ["--restore", str(Path(tmp) / "TartanVO_flow.npz")]
+            _peak_reset(device)
+            correlation.local_correlation.launches = 0
+            correlation.local_correlation_backward.launches = 0
+            rec = tt.main(argv)
+            _sync(device)
+            fwd, bwd = correlation.local_correlation.launches, correlation.local_correlation_backward.launches
+            steps_ms = [s["ms"] for s in rec["steps"]]
+            part = {"mode": mode, "losses": [s["loss"] for s in rec["steps"]],
+                    "metrics": [s["metric"] for s in rec["steps"]], "step_ms": steps_ms,
+                    "steady_ms_per_step": float(np.median(steps_ms[1:])), "evals": rec["evals"],
+                    "peak_bytes": _peak(device), "correlation_launches": fwd, "backward_launches": bwd,
+                    "batch": batch, "hw": [h, w]}
+            if mode == "flowcov":
+                with np.load(Path(tmp) / "TartanVO_flow.npz") as a, np.load(out) as b:
+                    part["pwc_bit_identical"] = all(np.array_equal(a[k], b["pwc/" + k]) for k in a.files)
+            emit("train_tvo", "end", **part)
+            launches["local_correlation"][f"train_tvo.{mode} (3 steps + evals)"] = fwd
+            launches["local_correlation_backward"][f"train_tvo.{mode} (3 steps)"] = bwd
+            if not all(np.isfinite(part["losses"])):
+                raise AssertionError(f"train_tvo {mode}: non-finite losses {part['losses']}")
+            if on_card and bwd != per_step[mode] * 3:
+                raise AssertionError(f"train_tvo {mode}: {bwd} backward launches in 3 steps, "
+                                     f"not {per_step[mode]} a step")
+            if part.get("pwc_bit_identical") is False:
+                raise AssertionError("train_tvo flowcov: the frozen pwc moved")
+    if on_card:
+        par = tvo_step_parity(device)
+        ok = (par["loss_rel_err"] <= PARITY_BOUNDS["loss_rel_err"] and par["grad_rel_err"] <= PARITY_BOUNDS["grad_rel_err"]
+              and par["update_err_share_of_bound"] <= PARITY_BOUNDS["update_err_share_of_bound"]
+              and par["backward_launches"] == 5)
+        emit("train_tvo", "check", part="step parity (fp32 flow step, card vs CPU, cuDNN off)", agrees=ok,
+             bounds=PARITY_BOUNDS, **par)
+        if not ok:
+            raise AssertionError(f"train_tvo: step parity out of its bounds: {par}")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
@@ -1179,8 +1574,8 @@ def main() -> int:
 
         emit("build", "start")
         start = time.perf_counter()
-        with ThreadPoolExecutor(2) as pool:     # one nvcc process a source, started together
-            built = list(pool.map(build, ("latent_attn", "correlation")))
+        with ThreadPoolExecutor(3) as pool:     # one nvcc process a source, started together
+            built = list(pool.map(build, ("latent_attn", "correlation", "correlation_bwd")))
         emit("build", "end", wall_s=round(time.perf_counter() - start, 3), libraries=[
             {"library": str(b.path.relative_to(ROOT)), "nvcc_s": round(b.seconds, 3), "ptxas": b.ptxas.splitlines()}
             for b in built])
@@ -1190,6 +1585,8 @@ def main() -> int:
     kernel_recs = phase_kernel(device, 12800 if on_card else 64, 100 if on_card else 4, timed=on_card)
     corr_shapes = CORR_SHAPES + [CORR_ODD] if on_card else [(1, 8, 12, 16), (1, 16, 5, 7)]
     kernel_recs.update(phase_correlation(device, corr_shapes, timed=on_card))
+    bwd_shapes = CORR_BWD_SHAPES if on_card else {"rehearsal": [(2, 8, 12, 16), (1, 16, 5, 7)]}
+    kernel_recs.update(phase_correlation_bwd(device, bwd_shapes, timed=on_card))
     emit("kernel", "end")
 
     clip = load_config(ROOT / CLIP)[0].Sequence.args
@@ -1339,7 +1736,30 @@ def main() -> int:
         by_phase.setdefault(name, {}).update(parts)
     emit("datasets", "end", wall_s=time.perf_counter() - start)
 
-    # 14. kernels
+    # 14. the dense matchers and depths through the dense evaluation, and the ApplyGT modifiers
+    emit("dense", "start")
+    start = time.perf_counter()
+    for name, parts in phase_dense(device, args.size).items():
+        by_phase.setdefault(name, {}).update(parts)
+    emit("dense", "end", wall_s=time.perf_counter() - start)
+
+    # 15. TartanVOCovMatcher (PWC + RAFT-style covariance) with seeded random weights
+    emit("tartanvo_cov", "start")
+    start = time.perf_counter()
+    for name, parts in phase_tartanvo_cov(device, args.size).items():
+        by_phase.setdefault(name, {}).update(parts)
+    emit("tartanvo_cov", "end", wall_s=time.perf_counter() - start)
+
+    # 16. the TartanVO trainer: flow, flowcov and stereo, through the correlation's backward kernel
+    emit("train_tvo", "start")
+    start = time.perf_counter()
+    tvo = phase_train_tvo(device, args.size)
+    for name, parts in tvo.items():
+        by_phase.setdefault(name, {}).update(parts)
+    launches["local_correlation_backward"] = sum(tvo["local_correlation_backward"].values())
+    emit("train_tvo", "end", wall_s=time.perf_counter() - start)
+
+    # 17. kernels
     kernels = []
     for name, rec in kernel_recs.items():
         source, replaces = KERNEL_SOURCES[name.split("[")[0]]
@@ -1350,6 +1770,9 @@ def main() -> int:
             "bound_share": rec.get("bound_share"), "device_ms": rec.get("device_ms"),
             "device_bound_share": rec.get("device_bound_share"),
         })
+        if "other_sets" in rec:
+            kernels[-1]["shapes"] = rec["shapes"]
+            kernels[-1]["other_shape_sets"] = rec["other_sets"]
         if name in by_phase:
             kernels[-1]["launches_by_phase"] = by_phase[name]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -101,7 +101,12 @@ class TrainPairDataset:
     def draw(self, batch_size: int, height: int, width: int, rng: np.random.Generator) -> dict[str, np.ndarray]:
         """One batch of ``batch_size`` pairs drawn uniformly with ``rng``, in
         the calling thread (:meth:`batches` draws them ahead on its own)."""
-        idx = rng.integers(0, len(self._pairs), size=batch_size)
+        return self.assemble(rng.integers(0, len(self._pairs), size=batch_size), height, width, rng)
+
+    def assemble(self, idx: np.ndarray, height: int, width: int,
+                 rng: np.random.Generator) -> dict[str, np.ndarray]:
+        """The batch of the pairs ``idx``: each a stereo sample with probability
+        ``stereo_prob``, randomly cropped to (height, width) with ``rng``."""
         img1, img2, gt_flow, mask = [], [], [], []
         for i in idx:
             f0, f1 = self.get_pair(int(i))

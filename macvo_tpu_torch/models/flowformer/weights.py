@@ -81,6 +81,62 @@ def load_flax_checkpoint(module: torch.nn.Module, npz_path: str | Path) -> None:
     load_state(module, flax_to_torch(arrays, transposed_convs(module)))
 
 
+def random_seed(weight: str) -> int | None:
+    """The seed of a ``"random"`` / ``"random:<seed>"`` weight option (``"random"``
+    is seed 0), or None for a checkpoint path."""
+    if not str(weight).startswith("random"):
+        return None
+    return int(str(weight).split(":")[1]) if ":" in str(weight) else 0
+
+
+def random_state(module: torch.nn.Module, seed: int) -> dict[str, torch.Tensor]:
+    """Seeded random weights for every entry of ``module``'s state_dict, drawn
+    in state_dict order from a ``torch.Generator`` of its own (the global RNG
+    is untouched), with flax's default initializers' scales: a Dense / Conv /
+    ConvTranspose kernel N(0, 1/fan_in) with fan_in = inputs x kernel area (flax's
+    lecun_normal, untruncated), biases and ``gamma`` 0, LayerNorm scales 1,
+    ``latents`` N(0, 0.02^2). The bits differ from a flax init of the same seed."""
+    gen = torch.Generator().manual_seed(int(seed))
+    transposed = transposed_convs(module)
+    out = {}
+    for key, value in module.state_dict().items():
+        leaf, owner = key.rsplit(".", 1)[-1], key.rsplit(".", 1)[0]
+        shape = tuple(value.shape)
+        if leaf == "weight" and len(shape) >= 2:
+            fan_in = shape[0] if owner in transposed else shape[1]
+            for k in shape[2:]:
+                fan_in *= k
+            t = torch.randn(shape, generator=gen) / fan_in ** 0.5
+        elif leaf == "weight":
+            t = torch.ones(shape)
+        elif leaf == "latents":
+            t = torch.randn(shape, generator=gen) * 0.02
+        else:
+            t = torch.zeros(shape)
+        out[key] = t.to(value.dtype)
+    return out
+
+
+def load_weights(module: torch.nn.Module, weight: str | Path) -> None:
+    """``weight`` is an npz checkpoint (:func:`load_flax_checkpoint`) or
+    ``"random[:<seed>]"`` (:func:`random_state`)."""
+    seed = random_seed(str(weight))
+    if seed is None:
+        load_flax_checkpoint(module, weight)
+    else:
+        load_state(module, random_state(module, seed))
+
+
+def build_with_weights(factory, weight: str | Path) -> torch.nn.Module:
+    """``factory()`` with the weights of ``weight`` (:func:`load_weights`). The
+    modules' default initialization runs on a forked CPU generator, so the
+    global torch RNG is left as it was."""
+    with torch.random.fork_rng(devices=[]):
+        module = factory()
+    load_weights(module, weight)
+    return module
+
+
 def load_state(module: torch.nn.Module, state: Mapping[str, torch.Tensor]) -> None:
     own = module.state_dict()
     missing = sorted(set(own) - set(state))

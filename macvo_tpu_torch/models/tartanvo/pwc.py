@@ -84,9 +84,10 @@ class PyramidEncoder(nn.Module):
             setattr(self, f"conv{lvl}c", conv3x3(dim, dim))
             cin = dim
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor, levels: int | None = None) -> list[torch.Tensor]:
+        """The first ``levels`` levels (all by default), finest first."""
         feats = []
-        for lvl in range(len(self.dims)):
+        for lvl in range(len(self.dims) if levels is None else levels):
             x = _leaky(conv_same(getattr(self, f"conv{lvl}a"), x))
             x = _leaky(getattr(self, f"conv{lvl}b")(x))
             x = _leaky(getattr(self, f"conv{lvl}c")(x))
@@ -147,7 +148,9 @@ class PWCFlowNet(nn.Module):
                 setattr(self, f"upfeat{lvl}", up_conv(est.out_channels, 2))
         self.context = ContextNet(self.estimator1.out_channels)
 
-    def forward(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    def forward(self, img1: torch.Tensor, img2: torch.Tensor, return_features: bool = False):
+        """Flow (B,H/4,W/4,2); with ``return_features`` also the last
+        estimator's features (B,H/4,W/4,C), channel-last like the flow."""
         b = img1.shape[0]
         imgs = torch.cat([img1, img2], dim=0).permute(0, 3, 1, 2).contiguous()
         feats = [f.split(b, dim=0) for f in self.pyramid(imgs)]
@@ -164,5 +167,7 @@ class PWCFlowNet(nn.Module):
             if lvl > 1:
                 up_flow = getattr(self, f"upflow{lvl}")(flow)
                 up_feat = getattr(self, f"upfeat{lvl}")(x)
-        flow = flow + self.context(x)
-        return flow.permute(0, 2, 3, 1)
+        flow = (flow + self.context(x)).permute(0, 2, 3, 1)
+        if return_features:
+            return flow, x.permute(0, 2, 3, 1)
+        return flow

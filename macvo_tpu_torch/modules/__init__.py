@@ -10,6 +10,9 @@ from .covariance import (
     NoCovariance,
 )
 from .frontend import (
+    ApplyGTDepthCov,
+    ApplyGTMatchCov,
+    ApplyGTMatchMask,
     DepthOutput,
     FrontendCompose,
     GTDepth,
@@ -20,8 +23,14 @@ from .frontend import (
     MatchOutput,
     retrieve_pixels,
 )
-from .frontend_network import FlowFormerCovFrontend
-from .frontend_tartanvo import TartanMotionNet, TartanVODepth, TartanVOMatcher
+from .frontend_network import (
+    FlowFormerCovDepth,
+    FlowFormerCovFrontend,
+    FlowFormerCovMatcher,
+    FlowFormerDepth,
+    FlowFormerMatcher,
+)
+from .frontend_tartanvo import TartanMotionNet, TartanVOCovMatcher, TartanVODepth, TartanVOMatcher
 from .keyframe import AllKeyframe, IKeyframeSelector, UniformKeyframe
 from .keypoint import (
     CovAwareSelector,
@@ -47,14 +56,15 @@ from .outlier import (
 )
 
 __all__ = [
-    "AllKeyframe", "CovAwareSelector", "CovAwareSelector_NoDepth", "CovarianceSanityFilter",
-    "DepthCovariance", "DepthOutput", "FilterCompose", "FlowFormerCovFrontend", "FrontendCompose",
+    "AllKeyframe", "ApplyGTDepthCov", "ApplyGTMatchCov", "ApplyGTMatchMask", "CovAwareSelector", "CovAwareSelector_NoDepth", "CovarianceSanityFilter",
+    "DepthCovariance", "DepthOutput", "FilterCompose", "FlowFormerCovDepth", "FlowFormerCovFrontend",
+    "FlowFormerCovMatcher", "FlowFormerDepth", "FlowFormerMatcher", "FrontendCompose",
     "GTDepth", "GTMatcher", "GTMotionwithNoise", "GaussianMixtureCovariance", "GradientSelector",
     "GridSelector", "ICovariance2to3", "IFrontend", "IKeyframeSelector", "IKeypointSelector",
     "IMapProcessor", "IMatcher", "IMotionModel", "IObservationFilter", "IStereoDepth", "IdentityFilter",
     "LikelyFrontOfCamFilter", "MappingPointSelector", "MatchCovariance", "MatchOutput", "Modifier_Diagonalize",
     "Modifier_Normalize", "MotionInterpolate", "Naive", "NoCovariance", "PoseInterpolate", "RandomSelector",
     "ReadPoseFile", "SelectorCompose", "SimpleDepthFilter", "SparseGradienSelector", "SparseGradientSelector",
-    "StaticMotionModel", "TartanMotionNet", "TartanVODepth", "TartanVOMatcher", "UniformKeyframe",
+    "StaticMotionModel", "TartanMotionNet", "TartanVOCovMatcher", "TartanVODepth", "TartanVOMatcher", "UniformKeyframe",
     "retrieve_pixels",
 ]

@@ -116,6 +116,84 @@ class GTMatcher(IMatcher):
         return
 
 
+class ApplyGTDepthCov(IStereoDepth):
+    """Modifier: wrap the depth module ``config.module``; its covariance becomes
+    the squared error against the ground-truth depth."""
+
+    def __init__(self, config: SimpleNamespace, device="cuda") -> None:
+        super().__init__(config, device)
+        self.internal = IStereoDepth.instantiate(config.module.type, config.module.args, device=device)
+
+    @property
+    def provide_cov(self) -> bool:
+        return True
+
+    def estimate(self, frame: StereoData) -> DepthOutput:
+        if frame.gt_depth is None:
+            raise ValueError("ApplyGTDepthCov requires frames with gt_depth")
+        out = self.internal.estimate(frame)
+        out.cov = torch.square(frame.gt_depth - out.depth)
+        return out
+
+    @classmethod
+    def is_valid_config(cls, config) -> None:
+        if config is None:
+            raise ValueError(f"{cls.__name__}: config is None")
+        IStereoDepth.is_valid_config(config.module)
+
+
+class ApplyGTMatchCov(IMatcher):
+    """Modifier: wrap the matcher ``config.module``; its diagonal covariance
+    becomes the squared flow error against the ground truth."""
+
+    def __init__(self, config: SimpleNamespace, device="cuda") -> None:
+        super().__init__(config, device)
+        self.internal = IMatcher.instantiate(config.module.type, config.module.args, device=device)
+
+    @property
+    def provide_cov(self) -> bool:
+        return True
+
+    def estimate(self, frame_t1: StereoData, frame_t2: StereoData) -> MatchOutput:
+        if frame_t1.gt_flow is None:
+            raise ValueError("ApplyGTMatchCov requires frames with gt_flow")
+        out = self.internal.estimate(frame_t1, frame_t2)
+        return MatchOutput.from_partial_cov(flow=out.flow, cov=torch.square(out.flow - frame_t1.gt_flow),
+                                            mask=out.mask)
+
+    @classmethod
+    def is_valid_config(cls, config) -> None:
+        if config is None:
+            raise ValueError(f"{cls.__name__}: config is None")
+        IMatcher.is_valid_config(config.module)
+
+
+class ApplyGTMatchMask(IMatcher):
+    """Modifier: wrap the matcher ``config.module``; its mask becomes the
+    ground-truth flow mask."""
+
+    def __init__(self, config: SimpleNamespace, device="cuda") -> None:
+        super().__init__(config, device)
+        self.internal = IMatcher.instantiate(config.module.type, config.module.args, device=device)
+
+    @property
+    def provide_cov(self) -> bool:
+        return self.internal.provide_cov
+
+    def estimate(self, frame_t1: StereoData, frame_t2: StereoData) -> MatchOutput:
+        if frame_t1.flow_mask is None:
+            raise ValueError("ApplyGTMatchMask requires frames with flow_mask")
+        out = self.internal.estimate(frame_t1, frame_t2)
+        out.mask = frame_t1.flow_mask
+        return out
+
+    @classmethod
+    def is_valid_config(cls, config) -> None:
+        if config is None:
+            raise ValueError(f"{cls.__name__}: config is None")
+        IMatcher.is_valid_config(config.module)
+
+
 class IFrontend(RegisteredConfigTestable, register=False):
     """Joint depth+match estimation: ``estimate_pair(frame_t1, frame_t2) ->
     (DepthOutput_t2, MatchOutput_t1t2)``; ``estimate_depth(frame) -> DepthOutput``.

@@ -1,13 +1,18 @@
-"""FlowFormerCov frontend (port of ``FlowFormerCovFrontend`` in
-``macvo_tpu/modules/frontend_network.py``).
+"""FlowFormerCov frontends (port of ``macvo_tpu/modules/frontend_network.py``).
 
-One network does both tasks: each pair is one batched decode with B = 2
-(stereo t2 and flow t1->t2). The left image's Twins features and context are
-cached across frames, so a steady-state frame encodes only its two new images
-(``pair_cached``); the first pair after ``estimate_depth`` of another frame
-encodes all three (``pair_cold``).
+``FlowFormerCovFrontend``: one network does both tasks: each pair is one
+batched decode with B = 2 (stereo t2 and flow t1->t2). The left image's Twins
+features and context are cached across frames, so a steady-state frame
+encodes only its two new images (``pair_cached``); the first pair after
+``estimate_depth`` of another frame encodes all three (``pair_cold``).
 
-Weights: ``weight`` is the flax npz, converted in memory (see
+``FlowFormerMatcher`` / ``FlowFormerCovMatcher`` (flow of the left images)
+and ``FlowFormerDepth`` / ``FlowFormerCovDepth`` (stereo depth) run one
+single-pair estimate each through ``_FlowFormerRunner.inference``: features,
+context and decode on the padded pair, one latent-attention launch.
+
+Weights: ``weight`` is the flax npz, converted in memory, or
+``"random[:<seed>]"`` for seeded random weights (see
 ``models/flowformer/weights.py``).
 
 Covariance recalibration: ``cov_calib`` (default ``"auto"``) names a JSON of
@@ -19,6 +24,8 @@ temperature scales the unpadded, normalized covariance on every path.
 Precision: fp32 configs run fp32 with TF32 off for both cuBLAS and cuDNN
 (cuDNN convolutions default to TF32); this is the card's twin of the
 HIGHEST-precision rule of the JAX frontend. bf16 configs run under autocast.
+The JAX frontend's ``matmul_precision`` key (default / high / highest) is
+accepted and checked; an fp32 config keeps TF32 off whatever it says.
 """
 
 from __future__ import annotations
@@ -31,11 +38,13 @@ import torch
 
 from ..data.frame import StereoData
 from ..geometry.camera import disparity_to_depth, disparity_to_depth_cov
-from ..models.flowformer import FlowFormerConfig, FlowFormerCov, InputPadder, load_flax_checkpoint, normalize_cov
+from ..models.flowformer import FlowFormerConfig, FlowFormerCov, InputPadder, normalize_cov
+from ..models.flowformer.weights import build_with_weights
 from ..utils.device import resolve_device
-from .frontend import DepthOutput, IFrontend, MatchOutput
+from .frontend import DepthOutput, IFrontend, IMatcher, IStereoDepth, MatchOutput
 
 _DTYPES = ("fp32", "fp16", "bf16")
+_PRECISIONS = ("default", "high", "highest")
 
 
 def flow_to_depth(flow, cov, baseline: float, fx: float, enforce_positive: bool) -> DepthOutput:
@@ -90,8 +99,7 @@ class _FlowFormerRunner:
             decoder_dtype=getattr(config, "dec_dtype", "fp32"),
             inference_only=True,
         )
-        model = FlowFormerCov(self.cfg)
-        load_flax_checkpoint(model, str(config.weight))
+        model = build_with_weights(lambda: FlowFormerCov(self.cfg), str(config.weight))
         self.model = model.to(device).eval()
         self.calib = load_cov_calib(getattr(config, "cov_calib", "auto"), str(config.weight), device)
         self.fp32 = self.cfg.encoder_dtype == "fp32" and self.cfg.decoder_dtype == "fp32"
@@ -113,6 +121,11 @@ class _FlowFormerRunner:
         c_l = self.model.context(pl)
         flow, cov = self._decode_unpad(padder, f_l, f_r, c_l)
         return flow, cov, (f_l, c_l)
+
+    def inference(self, img_a, img_b):
+        """One padded single-pair estimate (B,H,W,3) x2 -> (flow (B,H,W,2), cov (B,H,W,2))."""
+        flow, cov, _ = self.depth(img_a, img_b)
+        return flow, cov
 
     def pair_cold(self, l1, l2, r2):
         """Flow(l1->l2) + stereo(l2->r2) with no cache: encode all three images."""
@@ -180,6 +193,91 @@ class FlowFormerCovFrontend(IFrontend):
             "enforce_positive_disparity": lambda b: isinstance(b, bool),
             "decoder_depth": lambda v: isinstance(v, int),
         })
-        calib = getattr(config, "cov_calib", None)
-        if calib is not None and not isinstance(calib, str):
-            raise ValueError(f"{cls.__name__}: config key 'cov_calib' has invalid value {calib!r}")
+        check_optional_keys(cls, config)
+
+
+def check_optional_keys(cls, config) -> None:
+    """The optional keys every FlowFormer module takes: ``cov_calib`` (a string
+    or null) and ``matmul_precision``."""
+    calib = getattr(config, "cov_calib", None)
+    if calib is not None and not isinstance(calib, str):
+        raise ValueError(f"{cls.__name__}: config key 'cov_calib' has invalid value {calib!r}")
+    precision = getattr(config, "matmul_precision", "default")
+    if precision not in _PRECISIONS:
+        raise ValueError(f"{cls.__name__}: config key 'matmul_precision' has invalid value {precision!r}")
+
+
+class _SinglePairModule:
+    """Base of the matchers and depths below: a runner on ``device``, and a
+    config check that asks for ``weight`` (and the optional keys' types)."""
+
+    def __init__(self, config: SimpleNamespace, device: str | torch.device = "cuda") -> None:
+        super().__init__(config, device)
+        self.device = resolve_device(device)
+        self.runner = _FlowFormerRunner(config, self.device)
+
+    @classmethod
+    def is_valid_config(cls, config) -> None:
+        cls._enforce_config_spec(config, {"weight": lambda s: isinstance(s, str)})
+        check_optional_keys(cls, config)
+
+
+class FlowFormerMatcher(_SinglePairModule, IMatcher):
+    """Flow-only matcher (no covariance): the flow of the left images t1 -> t2."""
+
+    @property
+    def provide_cov(self) -> bool:
+        return False
+
+    @torch.inference_mode()
+    def estimate(self, frame_t1: StereoData, frame_t2: StereoData) -> MatchOutput:
+        flow, _ = self.runner.inference(frame_t1.imageL, frame_t2.imageL)
+        return MatchOutput(flow=flow)
+
+
+class FlowFormerCovMatcher(_SinglePairModule, IMatcher):
+    """Joint flow + covariance matcher."""
+
+    @property
+    def provide_cov(self) -> bool:
+        return True
+
+    @torch.inference_mode()
+    def estimate(self, frame_t1: StereoData, frame_t2: StereoData) -> MatchOutput:
+        flow, cov = self.runner.inference(frame_t1.imageL, frame_t2.imageL)
+        return MatchOutput.from_partial_cov(flow=flow, cov=cov)
+
+
+class FlowFormerDepth(_SinglePairModule, IStereoDepth):
+    """Stereo depth from the FlowFormer flow, without covariance."""
+
+    @property
+    def provide_cov(self) -> bool:
+        return False
+
+    @torch.inference_mode()
+    def estimate(self, frame: StereoData) -> DepthOutput:
+        flow, _ = self.runner.inference(frame.imageL, frame.imageR)
+        disparity = flow[..., 0:1].abs()
+        return DepthOutput(depth=disparity_to_depth(disparity, frame.frame_baseline, frame.fx),
+                           disparity=disparity)
+
+
+class FlowFormerCovDepth(_SinglePairModule, IStereoDepth):
+    """Stereo depth and its variance from FlowFormerCov; with
+    ``enforce_positive_disparity`` the mask keeps the pixels whose stereo flow
+    is positive. Like the JAX module, its config check asks only for
+    ``weight`` (and the optional keys' types)."""
+
+    def __init__(self, config: SimpleNamespace, device: str | torch.device = "cuda") -> None:
+        super().__init__(config, device)
+        self.enforce_positive = bool(getattr(config, "enforce_positive_disparity", False))
+
+    @property
+    def provide_cov(self) -> bool:
+        return True
+
+    @torch.inference_mode()
+    def estimate(self, frame: StereoData) -> DepthOutput:
+        flow, cov = self.runner.inference(frame.imageL, frame.imageR)
+        return flow_to_depth(flow, cov, frame.frame_baseline, frame.fx, self.enforce_positive)

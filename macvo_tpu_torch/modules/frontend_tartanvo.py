@@ -5,11 +5,12 @@ The networks of ``models/tartanvo`` as pipeline modules, with the reference's
 adapter conventions: images are center-cropped to /64 multiples, network
 outputs are NaN-padded back to full resolution with a validity mask over the
 crop margin, and flow is un-normalized by ``1/FLOW_NORM`` and upsampled x4.
-``TartanVOCovMatcher`` (PWC + RAFT-style covariance) is not ported yet.
 
-Each module loads its flax checkpoint (``weight``) in memory and runs fp32 on
-its ``device`` (``cuda`` unless the caller asks for the CPU), with TF32 off
-for cuDNN and cuBLAS on the card, as the JAX record is fp32.
+Each module loads its flax checkpoint (``weight``) in memory, or draws seeded
+random weights for ``weight: "random[:<seed>]"`` (with a warning, as the JAX
+host gives), and runs fp32 on its ``device`` (``cuda`` unless the caller asks
+for the CPU), with TF32 off for cuDNN and cuBLAS on the card, as the JAX
+record is fp32.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch.nn.functional as F
 from ..data.frame import StereoData, StereoFrame
 from ..geometry import se3
 from ..geometry.camera import disparity_to_depth, disparity_to_depth_cov
-from ..models.flowformer.weights import load_flax_checkpoint
+from ..models.flowformer.weights import build_with_weights, random_seed
 from ..models.tartanvo import (
     FLOW_NORM,
     POSE_DEPTH_NORM,
@@ -31,6 +32,7 @@ from ..models.tartanvo import (
     POSENET_SIZE,
     STEREO_NORM,
     PWCFlowNet,
+    RAFTFlowCovNet,
     StereoCovNet,
     VOFlowRes,
     make_intrinsics_layer,
@@ -38,6 +40,7 @@ from ..models.tartanvo import (
     resize_bilinear,
 )
 from ..utils.device import resolve_device
+from ..utils.logging import Logger
 from .frontend import DepthOutput, IMatcher, IStereoDepth, MatchOutput
 from .motion import IMotionModel
 
@@ -60,9 +63,16 @@ def margin_mask(h: int, w: int, mh: int, mw: int, h64: int, w64: int, device) ->
     return mask
 
 
-def load_network(model: torch.nn.Module, weight: str, device: torch.device) -> torch.nn.Module:
-    """Load the flax checkpoint into ``model`` and place it on ``device`` (fp32, TF32 off)."""
-    load_flax_checkpoint(model, str(weight))
+def load_network(net_class, weight: str, device: torch.device) -> torch.nn.Module:
+    """Build ``net_class()`` with the flax checkpoint (or seeded random weights)
+    of ``weight`` (``models/flowformer/weights.py: build_with_weights``) and
+    place it on ``device`` (fp32, TF32 off)."""
+    if random_seed(str(weight)) is not None:
+        Logger.warning(
+            f"{net_class.__name__}: RANDOM weights ({weight}) — no trained "
+            "TartanVO-family checkpoint exists in this snapshot; outputs are "
+            "not meaningful as a baseline (PARITY.md row 27)")
+    model = build_with_weights(net_class, str(weight))
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -79,7 +89,7 @@ class TartanVOMatcher(IMatcher):
     def __init__(self, config: SimpleNamespace, device: str | torch.device = "cuda") -> None:
         super().__init__(config, device)
         self.device = resolve_device(device)
-        self.net = load_network(PWCFlowNet(), config.weight, self.device)
+        self.net = load_network(PWCFlowNet, config.weight, self.device)
 
     @property
     def provide_cov(self) -> bool:
@@ -100,13 +110,43 @@ class TartanVOMatcher(IMatcher):
         cls._enforce_config_spec(config, {"weight": lambda s: isinstance(s, str)})
 
 
+class TartanVOCovMatcher(IMatcher):
+    """PWC flow with the RAFT-style recurrent covariance: the variance of the
+    last iteration, exp(2 log_sigma), resized as the flow is (and, as in the
+    JAX package, not rescaled by ``FLOW_NORM``)."""
+
+    def __init__(self, config: SimpleNamespace, device: str | torch.device = "cuda") -> None:
+        super().__init__(config, device)
+        self.device = resolve_device(device)
+        self.net = load_network(RAFTFlowCovNet, config.weight, self.device)
+
+    @property
+    def provide_cov(self) -> bool:
+        return True
+
+    @torch.inference_mode()
+    def estimate(self, frame_t1: StereoData, frame_t2: StereoData) -> MatchOutput:
+        h, w = frame_t1.height, frame_t1.width
+        mh, mw, h64, w64 = crop_margins(h, w)
+        flow_q, log_sigma = self.net(_cropped(frame_t1.imageL, mh, mw, h64, w64),
+                                     _cropped(frame_t2.imageL, mh, mw, h64, w64))
+        flow = resize_bilinear(flow_q / FLOW_NORM, (h64, w64))
+        cov = resize_bilinear(torch.exp(2.0 * log_sigma[-1]), (h64, w64))
+        return MatchOutput.from_partial_cov(flow=nan_pad(flow, h, w, mh, mw), cov=nan_pad(cov, h, w, mh, mw),
+                                            mask=margin_mask(h, w, mh, mw, h64, w64, flow.device))
+
+    @classmethod
+    def is_valid_config(cls, config) -> None:
+        cls._enforce_config_spec(config, {"weight": lambda s: isinstance(s, str)})
+
+
 class TartanVODepth(IStereoDepth):
     """Hourglass stereo depth with the optional covariance decoder."""
 
     def __init__(self, config: SimpleNamespace, device: str | torch.device = "cuda") -> None:
         super().__init__(config, device)
         self.device = resolve_device(device)
-        self.net = load_network(StereoCovNet(), config.weight, self.device)
+        self.net = load_network(StereoCovNet, config.weight, self.device)
         self.use_cov = getattr(config, "cov_mode", "None") == "Est"
 
     @property
@@ -146,7 +186,7 @@ class TartanMotionNet(IMotionModel):
     def __init__(self, config: SimpleNamespace, device: str | torch.device = "cuda") -> None:
         super().__init__(config)
         self.device = resolve_device(device)
-        self.net = load_network(VOFlowRes(), config.weight, self.device)
+        self.net = load_network(VOFlowRes, config.weight, self.device)
         self.pose_norm = torch.tensor(POSE_NORM, device=self.device)
         self.prev_pose: Optional[torch.Tensor] = None
 

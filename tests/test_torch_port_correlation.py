@@ -62,3 +62,57 @@ def test_other_devices_raise():
     f = torch.zeros(1, 4, 8, 8, device="meta")
     with pytest.raises(ValueError):
         correlation.local_correlation(f, f)
+
+
+# (B, H, W, C): odd H and W, the coarsest trainer level (5x7x196), B = 2, a window wider than the map.
+BWD_SHAPES = [(2, 9, 13, 7), (4, 5, 7, 196), (1, 37, 53, 48), (2, 3, 4, 32), (1, 20, 28, 96)]
+
+
+def _vjp_inputs(b, h, w, c, seed):
+    f1, f2 = _inputs(b, h, w, c, seed)
+    g = np.random.default_rng(seed + 1).normal(size=(b, h, w, 81)).astype(np.float32)
+    return f1, f2, g
+
+
+def _jax_vjp(f1, f2, g):
+    import jax
+
+    _, vjp = jax.vjp(lambda a, b: j_local_correlation(a, b, 4), jnp.asarray(f1), jnp.asarray(f2))
+    return [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+
+@pytest.mark.parametrize("b,h,w,c", BWD_SHAPES)
+def test_plain_backward_matches_jax_vjp(b, h, w, c):
+    """The plain backward (the CUDA backward kernel's twin) against ``jax.vjp``
+    of the JAX package's public ``local_correlation`` (its custom VJP), on
+    unit-normal inputs: 1e-5 absolute (fp32 sums over the 81 displacements in
+    another order)."""
+    f1, f2, g = _vjp_inputs(b, h, w, c, seed=3 * h + w)
+    ref1, ref2 = _jax_vjp(f1, f2, g)
+    g1, g2 = correlation.local_correlation_bwd_torch(_nchw(f1), _nchw(f2), _nchw(g))
+    np.testing.assert_allclose(g1.permute(0, 2, 3, 1).numpy(), ref1, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(g2.permute(0, 2, 3, 1).numpy(), ref2, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("b,h,w,c", BWD_SHAPES[:3])
+def test_cpu_autograd_entry_matches_jax_vjp(b, h, w, c):
+    """autograd through the CPU entry (the plain version) and the backward
+    entry on CPU tensors give ``jax.vjp``'s gradients (1e-5 absolute), and
+    count no kernel launch."""
+    f1, f2, g = _vjp_inputs(b, h, w, c, seed=h + 7 * w)
+    ref1, ref2 = _jax_vjp(f1, f2, g)
+    a, bb = _nchw(f1).requires_grad_(), _nchw(f2).requires_grad_()
+    before = (correlation.local_correlation.launches, correlation.local_correlation_backward.launches)
+    correlation.local_correlation(a, bb).backward(_nchw(g))
+    e1, e2 = correlation.local_correlation_backward(_nchw(f1), _nchw(f2), _nchw(g))
+    assert (correlation.local_correlation.launches, correlation.local_correlation_backward.launches) == before
+    for ours in (a.grad, e1):
+        np.testing.assert_allclose(ours.permute(0, 2, 3, 1).numpy(), ref1, atol=1e-5, rtol=0)
+    for ours in (bb.grad, e2):
+        np.testing.assert_allclose(ours.permute(0, 2, 3, 1).numpy(), ref2, atol=1e-5, rtol=0)
+
+
+def test_backward_entry_rejects_other_devices():
+    f = torch.zeros(1, 4, 8, 8, device="meta")
+    with pytest.raises(ValueError):
+        correlation.local_correlation_backward(f, f, torch.zeros(1, 81, 8, 8, device="meta"))

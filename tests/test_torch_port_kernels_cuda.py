@@ -195,9 +195,152 @@ def test_correlation_kernel_rejects_what_it_cannot_take(cuda_device):
         correlation.local_correlation(f1, f2, radius=3)
     with pytest.raises(ValueError):
         correlation.local_correlation(f1, f2[:, :8])
-    with pytest.raises(RuntimeError):
-        correlation.local_correlation(f1.requires_grad_(), f2)
+    with pytest.raises(TypeError):
+        correlation.local_correlation(f1.double().requires_grad_(), f2.double())
     assert correlation.local_correlation.launches == before
+    # An input that requires grad is taken and differentiated by the backward kernel.
+    g = torch.randn(1, 81, 12, 20, device=cuda_device)
+    bwd_before = correlation.local_correlation_backward.launches
+    f1g = f1.clone().requires_grad_()
+    (correlation.local_correlation(f1g, f2) * g).sum().backward()
+    torch.cuda.synchronize()
+    assert correlation.local_correlation.launches == before + 1
+    assert correlation.local_correlation_backward.launches == bwd_before + 1
+    assert f1g.grad is not None and f2.grad is None
+    torch.testing.assert_close(f1g.grad, correlation.local_correlation_bwd_torch(f1, f2, g)[0], atol=1e-5, rtol=1e-5)
+
+
+# (B, C, H, W) of the five correlation calls of a PWC forward on a trainer batch (4x320x448) and
+# at 640x640, and an odd shape.
+CORR_BWD_SHAPES = [(4, 32, 80, 112), (4, 64, 40, 56), (4, 96, 20, 28), (4, 128, 10, 14), (4, 196, 5, 7),
+                   (1, 32, 160, 160), (1, 64, 80, 80), (1, 96, 40, 40), (1, 128, 20, 20), (1, 196, 10, 10),
+                   (2, 48, 37, 53)]
+
+
+def _bwd_inputs(shape, device, seed=4):
+    b, _, h, w = shape
+    f1, f2 = _corr_inputs(shape, device, seed)
+    g = torch.from_numpy(np.random.default_rng(seed + 1).normal(size=(b, 81, h, w)).astype(np.float32))
+    return f1, f2, g.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CORR_BWD_SHAPES)
+def test_correlation_backward_kernel_matches_plain(cuda_device, shape):
+    """Backward kernel vs its plain version, one launch for both gradients:
+    fp32 sums over the 81 displacements in another order (1e-5); a second run
+    is bit-identical (gather form, no atomics)."""
+    f1, f2, g = _bwd_inputs(shape, cuda_device)
+    before = correlation.local_correlation_backward.launches
+    g1, g2 = correlation.local_correlation_backward(f1, f2, g)
+    torch.cuda.synchronize()
+    assert correlation.local_correlation_backward.launches == before + 1
+    r1, r2 = correlation.local_correlation_bwd_torch(f1, f2, g)
+    torch.testing.assert_close(g1, r1, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(g2, r2, atol=1e-5, rtol=1e-5)
+    h1, h2 = correlation.local_correlation_backward(f1, f2, g)
+    assert torch.equal(g1, h1) and torch.equal(g2, h2)
+
+
+@pytest.mark.cuda
+def test_correlation_backward_kernel_matches_finite_differences(cuda_device):
+    """The plain backward passes float64 finite differences (gradcheck of the
+    plain forward and of the plain backward against it); the kernel, in fp32,
+    is within 1e-5 of the float64 plain gradients relative to their largest
+    value, at an odd shape with the window reaching past every edge."""
+    shape = (2, 5, 7, 9)
+    f1, f2, g = _bwd_inputs(shape, cuda_device, seed=9)
+    a, b = f1.double().cpu().requires_grad_(), f2.double().cpu().requires_grad_()
+    assert torch.autograd.gradcheck(lambda x, y: correlation.local_correlation_torch(x, y), (a, b))
+    out = correlation.local_correlation_torch(a, b)
+    ga, gb = torch.autograd.grad(out, (a, b), g.double().cpu())
+    pa, pb = correlation.local_correlation_bwd_torch(a.detach(), b.detach(), g.double().cpu())
+    torch.testing.assert_close(pa, ga, atol=1e-12, rtol=1e-12)
+    torch.testing.assert_close(pb, gb, atol=1e-12, rtol=1e-12)
+    k1, k2 = correlation.local_correlation_backward(f1, f2, g)
+    for k, ref in ((k1, pa), (k2, pb)):
+        assert float((k.double().cpu() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_correlation_autograd_on_the_card_launches_both_kernels(cuda_device):
+    """An input that requires grad goes through the autograd function: one
+    forward and one backward launch, the gradients of the plain version's
+    autograd (1e-5)."""
+    f1, f2, g = _bwd_inputs((2, 32, 20, 28), cuda_device, seed=12)
+    a, b = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+    fwd, bwd = correlation.local_correlation.launches, correlation.local_correlation_backward.launches
+    out = correlation.local_correlation(a, b)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (correlation.local_correlation.launches, correlation.local_correlation_backward.launches) == (fwd + 1, bwd + 1)
+    ra, rb = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+    (correlation.local_correlation_torch(ra, rb) * g).sum().backward()
+    torch.testing.assert_close(a.grad, ra.grad, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(b.grad, rb.grad, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [((4, 32, 80, 112), 2), ((4, 64, 40, 56), 7), ((4, 96, 20, 28), 12),
+                                          ((4, 128, 10, 14), 16), ((4, 196, 5, 7), 25), ((1, 32, 160, 160), 3),
+                                          ((1, 196, 10, 10), 25), ((2, 5, 7, 9), 1)])
+def test_correlation_backward_splits_the_channels_of_the_coarse_levels(cuda_device, shape, groups):
+    """The backward launcher's channel groups on a 132-SM H100: at least 4
+    blocks an SM where the channels allow it, one group a chunk of 8 at most."""
+    assert correlation.bwd_channel_groups(*shape, sms=132) == groups
+
+
+@pytest.mark.cuda
+def test_tartanvo_cov_matcher_launches_the_correlation_six_times_a_pair(cuda_device):
+    """TartanVOCovMatcher (random:0) on a 128x192 pair: six correlation
+    launches (five in the PWC, one of the context pyramids), no backward, and
+    the CPU's outputs (1e-4 of their magnitude)."""
+    from types import SimpleNamespace
+
+    from macvo_tpu_torch.data.frame import StereoData
+    from macvo_tpu_torch.modules import TartanVOCovMatcher
+
+    rng = np.random.default_rng(5)
+
+    def frame(device):
+        img = torch.from_numpy(rng.random((1, 128, 192, 3)).astype(np.float32)).to(device)
+        return StereoData(T_BS=np.zeros((1, 7), np.float32), K=np.eye(3, dtype=np.float32)[None],
+                          baseline=np.ones(1, np.float32), time_ns=np.zeros(1, np.int64), imageL=img, imageR=img)
+
+    f0, f1 = frame(cuda_device), frame(cuda_device)
+    card = TartanVOCovMatcher(SimpleNamespace(weight="random:0"), device=cuda_device)
+    cpu = TartanVOCovMatcher(SimpleNamespace(weight="random:0"), device="cpu")
+    fwd, bwd = correlation.local_correlation.launches, correlation.local_correlation_backward.launches
+    out = card.estimate(f0, f1)
+    torch.cuda.synchronize()
+    assert correlation.local_correlation.launches == fwd + 6
+    assert correlation.local_correlation_backward.launches == bwd
+    ref = cpu.estimate(f0.to(torch.device("cpu")), f1.to(torch.device("cpu")))
+    for a, b in ((out.flow, ref.flow), (out.cov, ref.cov)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,per_step", [("flow", 5), ("flowcov", 1), ("stereo", 0)])
+def test_tartanvo_train_step_launches_the_backward_kernel(cuda_device, mode, per_step):
+    """One step of each TartanVO trainer mode on a 2x64x128 batch: finite
+    loss, ``per_step`` backward-kernel launches; flowcov leaves the PWC as it
+    was."""
+    from macvo_tpu_torch.train import tartanvo as tt
+
+    rng = np.random.default_rng(6)
+    batch = {"img1": (rng.random((2, 64, 128, 3)) * 255).astype(np.uint8),
+             "img2": (rng.random((2, 64, 128, 3)) * 255).astype(np.uint8),
+             "gt_flow": rng.normal(0, 4.0, size=(2, 64, 128, 2)).astype(np.float16)}
+    model, params = tt.build_model(mode, cuda_device)
+    pwc = {k: v.clone() for k, v in model.state_dict().items() if k.startswith("pwc.")}
+    step = tt.make_step(model, mode, tt.make_optimizer(params, 1, 2e-4), cuda_device)
+    before = correlation.local_correlation_backward.launches
+    loss, _ = step(batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert correlation.local_correlation_backward.launches == before + per_step
+    assert all(torch.equal(model.state_dict()[k], v) for k, v in pwc.items())
 
 
 @pytest.mark.cuda

@@ -336,3 +336,149 @@ def test_baseline_full_width_cpu_matches_the_jax_record():
     m = evaluate_all(gt, est)
     for key, ref in JAX_CPU_RECORD.items():
         assert abs(m[key].rmse - ref) <= 0.005 * ref, (key, m[key].rmse, ref)
+
+
+# -- RAFTFlowCovNet, TartanVOCovMatcher and the random: weights option (PWC + RAFT-style covariance) --------
+
+FLOWCOV = MODEL / "TartanVO_flowcov.npz"
+
+
+def _flax_flat(params):
+    from flax.traverse_util import flatten_dict
+
+    return {"/".join(k): np.asarray(v) for k, v in flatten_dict(params).items()}
+
+
+def _flax_init(jcls, probe, seed=0):
+    jm = jcls()
+    return jm, jax.jit(jm.init)(jax.random.PRNGKey(seed), *[jnp.zeros(s) for s in probe])["params"]
+
+
+@pytest.mark.parametrize("name", ["flow", "stereo", "posenet", "flowcov"])
+def test_random_weights_are_seeded_with_the_flax_shapes(name):
+    """``random_state``: the same seed gives the same weights, another seed
+    others, the global torch RNG is untouched, and every tensor has the shape
+    of the flax init (its abstract evaluation) carried across by the port's
+    weight functions, which check every key and shape."""
+    from macvo_tpu.models.tartanvo import RAFTFlowCovNet as JRAFT
+    from macvo_tpu_torch.models.flowformer.weights import random_state
+    from macvo_tpu_torch.models.tartanvo import RAFTFlowCovNet
+
+    cls, jcls, probe = {**NETS, "flowcov": (RAFTFlowCovNet, JRAFT, [(1, 64, 64, 3)] * 2)}[name]
+    model = cls()
+    jm = jcls()
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), *[jnp.zeros(s) for s in probe])["params"])
+    params = jax.tree_util.tree_map(lambda x: np.zeros(x.shape, x.dtype), shapes)
+    carried = flax_to_torch(_flax_flat(params), transposed_convs(model))
+    load_state(model, carried)
+    rng_before = torch.get_rng_state()
+    a, b, c = random_state(model, 0), random_state(model, 0), random_state(model, 1)
+    assert torch.equal(torch.get_rng_state(), rng_before)
+    assert set(a) == set(carried)
+    for key, value in carried.items():
+        assert a[key].shape == value.shape and a[key].dtype == torch.float32
+        assert torch.equal(a[key], b[key])
+    kernels = [k for k in a if k.endswith("weight") and a[k].dim() == 4]
+    assert all(not torch.equal(a[k], c[k]) for k in kernels)
+    assert all(float(a[k].std()) > 0 for k in kernels)
+    load_state(model, a)
+
+
+def test_random_weight_option_of_the_tartanvo_host(monkeypatch):
+    """``weight: random`` is seed 0 and ``random:<n>`` seed n; the host warns
+    as the JAX host does; the same seed gives the same network."""
+    from macvo_tpu_torch.models.flowformer.weights import random_seed
+
+    assert (random_seed("random"), random_seed("random:7"), random_seed(str(CKPT["flow"]))) == (0, 7, None)
+    warned = []
+    monkeypatch.setattr(ft.Logger, "warning", lambda msg: warned.append(msg))
+    a = ft.TartanVOMatcher(SimpleNamespace(weight="random"), device="cpu")
+    b = ft.TartanVOMatcher(SimpleNamespace(weight="random:0"), device="cpu")
+    c = ft.TartanVOCovMatcher(SimpleNamespace(weight="random:1"), device="cpu")
+    assert len(warned) == 3 and "RANDOM weights (random)" in warned[0] and "PWCFlowNet" in warned[0]
+    assert "RAFTFlowCovNet" in warned[2]
+    for (k, va), vb in zip(a.net.state_dict().items(), b.net.state_dict().values()):
+        assert torch.equal(va, vb), k
+    assert not torch.equal(a.net.state_dict()["pyramid.conv0a.weight"], c.net.pwc.state_dict()["pyramid.conv0a.weight"])
+
+
+def _raft_pair(jm, params, model, i1, i2):
+    with torch.inference_mode():
+        flow, covs = model(torch.as_tensor(i1), torch.as_tensor(i2))
+    jflow, jcovs = jax.jit(lambda a, b: jm.apply({"params": params}, a, b))(jnp.asarray(i1), jnp.asarray(i2))
+    return flow.numpy(), covs.numpy(), np.asarray(jflow), np.asarray(jcovs)
+
+
+def test_raftcov_matches_jax_on_a_flax_init():
+    """RAFTFlowCovNet at 64x64 on seeded images with a flax init carried
+    across: the flow and all 4 log-sigma maps within PWCFlowNet's tolerance
+    (2e-6 absolute, 1e-5 relative)."""
+    from macvo_tpu.models.tartanvo import RAFTFlowCovNet as JRAFT
+    from macvo_tpu_torch.models.tartanvo import RAFTFlowCovNet
+
+    jm, params = _flax_init(JRAFT, [(1, 64, 64, 3)] * 2, seed=3)
+    model = RAFTFlowCovNet().eval()
+    load_state(model, flax_to_torch(_flax_flat(params), transposed_convs(model)))
+    rng = np.random.default_rng(5)
+    i1, i2 = (rng.normal(size=(2, 64, 64, 3)).astype(np.float32) for _ in range(2))
+    flow, covs, jflow, jcovs = _raft_pair(jm, params, model, i1, i2)
+    assert flow.shape == (2, 16, 16, 2) and covs.shape == jcovs.shape == (4, 2, 16, 16, 2)
+    assert np.abs(jcovs).max() > 1e-3
+    np.testing.assert_allclose(flow, jflow, atol=2e-6, rtol=1e-5)
+    np.testing.assert_allclose(covs, jcovs, atol=2e-6, rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def raft_real():
+    """(JAX module, params, port module) on model/TartanVO_flowcov.npz."""
+    from macvo_tpu.models.tartanvo import RAFTFlowCovNet as JRAFT
+    from macvo_tpu_torch.models.tartanvo import RAFTFlowCovNet
+
+    jm = JRAFT()
+    template = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
+                                              jnp.zeros((1, 64, 64, 3)))["params"])
+    params = load_params(FLOWCOV, template)
+    model = RAFTFlowCovNet().eval()
+    with np.load(FLOWCOV) as data:
+        load_state(model, flax_to_torch({k: data[k] for k in data.files}, transposed_convs(model)))
+    return jm, params, model
+
+
+def test_raftcov_matches_jax_on_the_checkpoint(clips, raft_real):
+    """RAFTFlowCovNet with the trained checkpoint (220 arrays) on a 128x192
+    crop of the clip: flow and the 4 log-sigma maps, PWCFlowNet's tolerance."""
+    jm, params, model = raft_real
+    i1, i2 = (x.numpy() for x in _real_pair(clips, 128, 192))
+    flow, covs, jflow, jcovs = _raft_pair(jm, params, model, i1, i2)
+    assert covs.shape == (4, 1, 32, 48, 2)
+    np.testing.assert_allclose(flow, jflow, atol=2e-6, rtol=1e-5)
+    np.testing.assert_allclose(covs, jcovs, atol=2e-6, rtol=1e-5)
+
+
+@pytest.mark.slow
+def test_raftcov_full_width_matches_jax_on_the_checkpoint(clips, raft_real):
+    """The same at the clip's full 640x640 (the shape the card runs)."""
+    jm, params, model = raft_real
+    (_, _), (f0, f1) = _crops(clips, 640, 640, 2)
+    i1, i2 = normalize_image(f0.stereo.imageL).numpy(), normalize_image(f1.stereo.imageL).numpy()
+    flow, covs, jflow, jcovs = _raft_pair(jm, params, model, i1, i2)
+    np.testing.assert_allclose(flow, jflow, atol=2e-6, rtol=1e-5)
+    np.testing.assert_allclose(covs, jcovs, atol=2e-6, rtol=1e-5)
+
+
+def test_cov_matcher_matches_jax_off_multiple_of_64(clips):
+    """TartanVOCovMatcher on the checkpoint at a 100x150 crop (crops to 64x128
+    inside, margins 18 and 11): mask and NaN positions exactly equal; flow 1e-5;
+    the covariance (variances exp(2 log_sigma), not rescaled by FLOW_NORM) 2e-5
+    relative; sigma_uv is 0."""
+    jm = jft.TartanVOCovMatcher(SimpleNamespace(weight=str(FLOWCOV)))
+    m = ft.TartanVOCovMatcher(SimpleNamespace(weight=str(FLOWCOV)), device="cpu")
+    assert m.provide_cov
+    (j0, j1), (f0, f1) = _crops(clips, 100, 150, 2)
+    jout, out = jm.estimate(j0.stereo, j1.stereo), m.estimate(f0.stereo, f1.stereo)
+    np.testing.assert_array_equal(out.mask.numpy(), np.asarray(jout.mask))
+    assert out.mask.sum() == 64 * 128 and out.cov.shape == (1, 100, 150, 3)
+    _assert_same_nan_and_close(out.flow, jout.flow, rtol=1e-5, atol=1e-5)
+    _assert_same_nan_and_close(out.cov, jout.cov, rtol=2e-5, atol=1e-7)
+    inside = out.mask[..., 0]
+    assert (out.cov[..., 2][inside] == 0).all() and (out.cov[..., :2][inside] > 0).all()
