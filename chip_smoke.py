@@ -1298,7 +1298,8 @@ def phase_dense(device, size: int) -> dict:
     decoder steps) through the four evaluate_* on the clip: within 1 % of the
     JAX CPU record, one fp32 latent-attention launch an estimate; the plain
     variants give the same flow and depth; the ApplyGT modifiers give finite
-    metrics. Returns the latent-attention launches by part."""
+    metrics with one fp32 latent-attention launch an estimate. Returns the
+    latent-attention launches by part."""
     import dataclasses
 
     import numpy as np
@@ -1354,24 +1355,27 @@ def phase_dense(device, size: int) -> dict:
     def around(inner, inner_args):
         return build_dynamic_config({"module": {"type": inner, "args": inner_args}})[0]
 
+    gt_cov = Counted(IMatcher.instantiate("ApplyGTMatchCov", around("FlowFormerMatcher", args), device=device))
+    gt_mask = Counted(IMatcher.instantiate("ApplyGTMatchMask", around("FlowFormerMatcher", args), device=device))
     latent_attn.reset_launches()
-    gt = {"ApplyGTMatchCov(FlowFormerMatcher).flowcov": dense.evaluate_flowcov(
-              IMatcher.instantiate("ApplyGTMatchCov", around("FlowFormerMatcher", args), device=device), frames),
-          "ApplyGTMatchMask(FlowFormerMatcher).flow": dense.evaluate_flow(
-              IMatcher.instantiate("ApplyGTMatchMask", around("FlowFormerMatcher", args), device=device),
-              frames, use_gt_mask=True),
+    gt = {"ApplyGTMatchCov(FlowFormerMatcher).flowcov": dense.evaluate_flowcov(gt_cov, frames),
+          "ApplyGTMatchMask(FlowFormerMatcher).flow": dense.evaluate_flow(gt_mask, frames, use_gt_mask=True),
           "ApplyGTDepthCov(GTDepth).depthcov": dense.evaluate_depthcov(
               IStereoDepth.instantiate("ApplyGTDepthCov", around("GTDepth", {}), device=device), frames)}
     gt = {k: dataclasses.asdict(v) for k, v in gt.items()}
-    gt_launches = latent_attn.latent_cross_attention.launches_by_dtype["fp32"]
-    emit("dense", "end", part="ApplyGT modifiers", latent_attn_launches=gt_launches, **gt)
+    gt_launches = dict(latent_attn.latent_cross_attention.launches_by_dtype)
+    gt_estimates = gt_cov.calls + gt_mask.calls
+    emit("dense", "end", part="ApplyGT modifiers", estimates=gt_estimates, latent_attn_launches=gt_launches, **gt)
     if not all(np.isfinite(v) for part in gt.values() for v in part.values()):
         raise AssertionError(f"dense: ApplyGT modifiers gave non-finite metrics {gt}")
-    del matcher, depth, plain_m, plain_d
+    if on_card and (gt_launches["fp32"] != gt_estimates or gt_launches["bf16"]):
+        raise AssertionError(f"dense: ApplyGT: {gt_launches} latent-attention launches for {gt_estimates} estimates")
+    del matcher, depth, plain_m, plain_d, gt_cov, gt_mask
     if on_card:
         torch.cuda.empty_cache()
     return {"latent_cross_attention[fp32]": {f"dense (4 evaluate_*, {estimates} estimates)": launches["fp32"],
-                                             "dense.ApplyGT (FlowFormerMatcher, 2 evaluate_*)": gt_launches}}
+                                             f"dense.ApplyGT (FlowFormerMatcher, 2 evaluate_*, {gt_estimates} "
+                                             "estimates)": gt_launches["fp32"]}}
 
 
 def phase_tartanvo_cov(device, size: int) -> dict:
@@ -1452,7 +1456,7 @@ def tvo_step_parity(device) -> dict:
             loss, _ = tt.flow_loss(model, upcast_batch(tt.with_mask(batch), dev))
             loss.backward()
             grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
-            opt.step()
+            tt.update(opt)
             res[dev.type] = {"loss": float(loss.detach()), "grads": grads, "lr": opt.adamw.param_groups[0]["lr"],
                              "bwd_launches": correlation.local_correlation_backward.launches - bwd,
                              "update": {n: p.detach().cpu() - before[n] for n, p in model.named_parameters()},

@@ -77,9 +77,10 @@ class RAFTFlowCovNet(nn.Module):
     """(img1, img2) (B,H,W,3), H and W multiples of 64 -> (flow (B,H/4,W/4,2)
     scaled by ``1/flow_norm`` as trained, log-sigma stack (iters,B,H/4,W/4,2)).
 
-    ``flow_grad=False`` runs the PWC without autograd: its flow only enters a
-    stop-gradient in training, so only the covariance branch (and the context
-    correlation) needs a backward."""
+    The covariance trainer freezes ``pwc`` (``requires_grad_(False)``): its
+    flow only enters a stop-gradient, so the PWC then builds no autograd
+    graph and only the covariance branch (with the context correlation) has a
+    backward."""
 
     def __init__(self, iters: int = 4) -> None:
         super().__init__()
@@ -88,9 +89,8 @@ class RAFTFlowCovNet(nn.Module):
         self.ctx_pyramid2 = PyramidEncoder()
         self.gaussian = GaussianGRU(iters)
 
-    def forward(self, img1: torch.Tensor, img2: torch.Tensor, flow_grad: bool = True):
-        with torch.set_grad_enabled(flow_grad and torch.is_grad_enabled()):
-            flow, _ = self.pwc(img1, img2, return_features=True)
+    def forward(self, img1: torch.Tensor, img2: torch.Tensor):
+        flow, _ = self.pwc(img1, img2, return_features=True)
         ctx = self.ctx_pyramid(img1.permute(0, 3, 1, 2).contiguous(), levels=2)[1]
         ctx2 = self.ctx_pyramid2(img2.permute(0, 3, 1, 2).contiguous(), levels=2)[1]
         corr = local_correlation(ctx.contiguous(), ctx2.contiguous())

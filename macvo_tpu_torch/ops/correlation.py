@@ -171,6 +171,7 @@ class LocalCorrelationFunction(torch.autograd.Function):
         return _launch(f1, f2, radius)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g: torch.Tensor):
         f1, f2 = ctx.saved_tensors
         grad_f1, grad_f2 = local_correlation_backward(f1, f2, g, ctx.radius)
@@ -187,7 +188,6 @@ def local_correlation(f1: torch.Tensor, f2: torch.Tensor, radius: int = 4) -> to
     if f1.device.type != "cuda":
         raise ValueError(f"local_correlation: unsupported device {f1.device}")
     if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
-        _check(f1, f2, radius)
         return LocalCorrelationFunction.apply(f1, f2, radius)
     return _launch(f1, f2, radius)
 

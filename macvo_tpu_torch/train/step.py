@@ -97,18 +97,8 @@ def make_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     return lambda step: cfg.lr
 
 
-def zero_nans_(grads: list[torch.Tensor]) -> None:
-    """optax's ``zero_nans``, in place: every NaN entry of a gradient becomes 0
-    (infinities stay), so one poisoned batch is a skipped step instead of a NaN
-    norm that the clip multiplies into every update."""
-    for g in grads:
-        torch.nan_to_num_(g, nan=0.0, posinf=float("inf"), neginf=float("-inf"))
-
-
 class Optimizer:
-    """Clip to global norm, then AdamW at the scheduled lr, over ``params``;
-    with ``zero_nans`` the NaN entries of the gradients are zeroed first
-    (optax's ``chain(zero_nans(), clip_by_global_norm, adamw)``).
+    """Clip to global norm, then AdamW at the scheduled lr, over ``params``.
 
     Clipping follows optax's ``clip_by_global_norm``: gradients are left as
     they are when their global norm is below ``clip`` and scaled to norm
@@ -116,10 +106,9 @@ class Optimizer:
     no gradient gets a zero one, so its moments decay and its weight decays,
     as optax treats it."""
 
-    def __init__(self, params: list[torch.nn.Parameter], cfg: TrainConfig, zero_nans: bool = False) -> None:
+    def __init__(self, params: list[torch.nn.Parameter], cfg: TrainConfig) -> None:
         self.params = list(params)
         self.cfg = cfg
-        self.zero_nans = zero_nans
         self.schedule = make_schedule(cfg)
         self.count = 0
         self.adamw = torch.optim.AdamW(self.params, lr=self.schedule(0), betas=(0.9, 0.999), eps=1e-8,
@@ -131,8 +120,6 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
-        if self.zero_nans:
-            zero_nans_(grads)
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         scale = torch.where(norm < self.cfg.clip, torch.ones_like(norm), self.cfg.clip / norm)
         torch._foreach_mul_(grads, scale)

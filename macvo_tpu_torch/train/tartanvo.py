@@ -13,9 +13,9 @@ Usage:
   the predicted variance.
 * ``--mode flowcov``: ``RAFTFlowCovNet`` with its ``pwc`` frozen (warm-started
   from ``--restore``): the gamma = 0.85-weighted NLL of the detached 1/4-res
-  flow error over the GRU iterations. The PWC runs without autograd (its flow
-  only enters the detached error), so the backward reaches the context
-  pyramids through the context correlation alone.
+  flow error over the GRU iterations. Frozen, the PWC builds no autograd
+  graph (its flow only enters the detached error), so the backward reaches
+  the context pyramids through the context correlation alone.
 
 Data: the ``seq_*`` TartanAir-layout sequences under ``--data`` (the last
 ``--holdout`` are held out), random (``--height`` x ``--width``, default
@@ -143,7 +143,7 @@ def flowcov_loss(model, batch: dict, gamma: float = 0.85) -> tuple[torch.Tensor,
     iterations, the last iteration's NLL)."""
     from ..models.tartanvo import FLOW_NORM, normalize_image
 
-    flow, log_sigmas = model(normalize_image(batch["img1"]), normalize_image(batch["img2"]), flow_grad=False)
+    flow, log_sigmas = model(normalize_image(batch["img1"]), normalize_image(batch["img2"]))
     gt4, valid = _quarter_gt(batch)
     err2 = ((flow / FLOW_NORM - gt4) ** 2).detach()
     denom = torch.clamp(valid.sum() * 2, min=1.0)
@@ -181,13 +181,28 @@ def build_model(mode: str, device: torch.device, restore: str | None = None, see
 
 
 def make_optimizer(params, steps: int, lr: float):
-    """zero_nans -> clip_by_global_norm(1.0) -> adamw(weight decay 1e-5) at
+    """clip_by_global_norm(1.0) -> adamw(weight decay 1e-5) at
     ``linear_onecycle_schedule(steps, lr)`` (optax's pct_start 0.3), or the
-    constant ``lr`` below 20 steps."""
+    constant ``lr`` below 20 steps; :func:`update` puts zero_nans first."""
     from .step import Optimizer, TrainConfig
 
     cfg = TrainConfig(lr=lr, weight_decay=1e-5, clip=1.0, num_steps=steps, warmup_frac=0.3)
-    return Optimizer(params, cfg, zero_nans=True)
+    return Optimizer(params, cfg)
+
+
+def zero_nans_(grads: list[torch.Tensor]) -> None:
+    """optax's ``zero_nans``, in place: every NaN entry of a gradient becomes 0
+    (infinities stay), so one poisoned batch is a skipped step instead of a NaN
+    norm that the clip multiplies into every update."""
+    for g in grads:
+        torch.nan_to_num_(g, nan=0.0, posinf=float("inf"), neginf=float("-inf"))
+
+
+def update(opt) -> None:
+    """The JAX trainer's ``chain(zero_nans(), clip_by_global_norm(1.0),
+    adamw)``: zero the NaN entries of the gradients, then ``opt``'s step."""
+    zero_nans_([p.grad for p in opt.params if p.grad is not None])
+    opt.step()
 
 
 def make_step(model, mode: str, opt, device: torch.device):
@@ -200,7 +215,7 @@ def make_step(model, mode: str, opt, device: torch.device):
     def step(batch):
         loss, metric = loss_fn(model, upcast_batch(with_mask(batch), device))
         loss.backward()
-        opt.step()
+        update(opt)
         return loss.detach(), metric.detach()
 
     return step

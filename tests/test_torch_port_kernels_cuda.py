@@ -281,6 +281,17 @@ def test_correlation_autograd_on_the_card_launches_both_kernels(cuda_device):
 
 
 @pytest.mark.cuda
+def test_correlation_double_backward_on_the_card_raises(cuda_device):
+    """The backward kernel's gradients carry no graph: a second-order use
+    (``create_graph=True``) raises instead of dropping its terms."""
+    f1, f2, g = _bwd_inputs((1, 8, 9, 11), cuda_device, seed=13)
+    a, b = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+    ga, _ = torch.autograd.grad((correlation.local_correlation(a, b) * g).sum(), (a, b), create_graph=True)
+    with pytest.raises(RuntimeError):
+        ga.sum().backward()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,groups", [((4, 32, 80, 112), 2), ((4, 64, 40, 56), 7), ((4, 96, 20, 28), 12),
                                           ((4, 128, 10, 14), 16), ((4, 196, 5, 7), 25), ((1, 32, 160, 160), 3),
                                           ((1, 196, 10, 10), 25), ((2, 5, 7, 9), 1)])

@@ -34,7 +34,7 @@ from macvo_tpu_torch.models.flowformer.weights import (
     flax_to_torch, load_state, random_state, torch_to_flax, transposed_convs)
 from macvo_tpu_torch.models.tartanvo import PWCFlowNet, RAFTFlowCovNet, StereoCovNet
 from macvo_tpu_torch.train import tartanvo as tt
-from macvo_tpu_torch.train.step import Optimizer, TrainConfig, zero_nans_
+from macvo_tpu_torch.train.step import Optimizer, TrainConfig
 
 ROOT = Path(__file__).parent.parent
 H, W, B, LR = 64, 64, 2, 2e-4
@@ -192,7 +192,7 @@ def test_one_step_matches_the_jax_trainer(inits, mode):
         assert float(np.abs(g.numpy() - ref).max()) <= 1e-4 * scale, n
     norm = float(torch.linalg.vector_norm(torch.stack([g.norm() for g in grads.values()])))
     clipped = {n: g * min(1.0, 1.0 / norm) for n, g in grads.items()}
-    opt.step()
+    tt.update(opt)
     upd_ref = flax_to_torch(jupd, transposed_convs(model))
     n_decided = 0
     for n, p in model.named_parameters():
@@ -245,13 +245,13 @@ def test_nan_gradient_gives_a_skipped_step():
         p = torch.nn.Parameter(torch.from_numpy(w0.copy()))
         opt = tt.make_optimizer([p], 1, 1e-2)
         p.grad = torch.from_numpy(g.copy())
-        opt.step()
+        tt.update(opt)
         np.testing.assert_allclose(p.detach().numpy(), w0 + np.asarray(upd["w"]), rtol=1e-6, atol=1e-7)
         assert torch.isfinite(p).all()
         if g is everywhere:
             np.testing.assert_allclose(p.detach().numpy(), w0 * (1 - 1e-2 * 1e-5), rtol=1e-7)
     grads = [torch.tensor([1.0, float("nan"), float("inf")])]
-    zero_nans_(grads)
+    tt.zero_nans_(grads)
     assert grads[0].tolist() == [1.0, 0.0, float("inf")]
 
 
@@ -267,7 +267,7 @@ def test_schedule_is_optax_linear_onecycle(steps):
     for s in range(steps + 5):
         expect = float(ref(s)) if steps >= 20 else LR
         np.testing.assert_allclose(opt.schedule(s), expect, rtol=1e-5, err_msg=f"step {s}")
-    assert isinstance(opt, Optimizer) and opt.zero_nans and opt.cfg == TrainConfig(
+    assert isinstance(opt, Optimizer) and opt.cfg == TrainConfig(
         lr=LR, weight_decay=1e-5, clip=1.0, num_steps=steps, warmup_frac=0.3)
 
 
