@@ -127,7 +127,36 @@ Phases, each announced by a flushed, timestamped JSON line:
               steady ms a step and peak memory; then one fp32 flow step on a
               2x64x128 batch, card (cuDNN off) against CPU, within the step-parity
               bounds of phase 12.
-17. kernels - one JSON line listing every ported kernel.
+17. runner  - ``python -m macvo_tpu_torch`` through its ``main``: MACVO_Performant.yaml
+              on the clip (10 frames, 640x640) with ``--timing`` into a result
+              sandbox under results/: metadata.yaml, config.yaml, poses.npy and
+              elapsed_time.json in it; the JAX package's six timer sections
+              (Odom_Runtime, Sync consume, Frontend.estimate, KP pipeline,
+              Frontend.forward, TwoframePGO.dispatch) and the frontend's device
+              section (CUDA events), one Odom_Runtime a frame, the device section
+              finite; one fp32 latent-attention launch a frame; ATE <= 0.05 m;
+              each section's median ms on one line. The poses bit-identical to a
+              second run without ``--timing``; a third run (3 frames) with the
+              stamp held at the first's lands in ``<stamp>_1``; a run with
+              ``--autoremove`` in a process of its own leaves no directory.
+              ``--saveplt`` and its figures where matplotlib is installed; where
+              it is not, the runner must refuse the flag before the run (a line
+              says so) and the timed run goes without it.
+18. posenet - two 24-frame RandomizedStereo worlds (160x120) written by
+              scripts/torch_gen_randomized.py (render seconds reported), then
+              ``python -m macvo_tpu_torch.train.posenet --holdout 1 --steps 20
+              --batch 16`` through its ``main``: finite losses, steady ms a step,
+              peak memory; one step card (cuDNN off) against the CPU's float64
+              step within phase 12's step-parity bounds (the fp32 CPU step
+              reported beside it); the written npz as TartanMotionNet in
+              Paper_Reproduce.yaml on 3 frames of the clip: finite poses, one fp32
+              latent-attention launch a frame.
+19. experiment - scripts/torch_experiment_macvo.py through its ``main``:
+              MACVO_Performant.yaml over the clip and the clip written as a
+              GeneralStereo rig, ``--seq_to 4``: evaluation.csv with one row a
+              sequence and the average, children.txt naming both, one fp32
+              latent-attention launch a frame.
+20. kernels - one JSON line listing every ported kernel.
 
 Each learned run resets the kernels' launch counters right before it and
 reads them right after: every kernel of the path must have launched. Any
@@ -1540,6 +1569,361 @@ def phase_train_tvo(device, size: int) -> dict:
     return launches
 
 
+# -- the runner's tooling, the pose net's trainer and the batch experiment runner (phases 17-19) ---------
+
+RUNNER_STAGES = ("Odom_Runtime", "Sync consume", "Frontend.estimate", "KP pipeline", "Frontend.forward",
+                 "TwoframePGO.dispatch")      # the JAX package's timer sections, under its names
+POSENET_HW = (120, 160)                       # (height, width) of the pose net's worlds; build_samples resizes to 112x160
+
+
+@contextlib.contextmanager
+def held_stamp(stamp: str):
+    """Hold the clock the result sandbox reads (``time.strftime`` of its
+    ``%m_%d_%H%M%S`` stamp) at ``stamp``."""
+    real = time.strftime
+    time.strftime = lambda fmt, *a: stamp if fmt == "%m_%d_%H%M%S" else real(fmt, *a)
+    try:
+        yield
+    finally:
+        time.strftime = real
+
+
+def _performant_yaml(tmp: Path, size: int) -> str:
+    """MACVO_Performant.yaml as shipped; in a rehearsal, a copy with 2 decoder
+    steps and no Preprocess (which would resize the crop to the full size)."""
+    from macvo_tpu_torch.utils.config import load_config, save_config
+
+    path = ROOT / "configs/experiment/macvo/MACVO_Performant.yaml"
+    if not size:
+        return str(path)
+    cfg = load_config(path)[1]
+    cfg["Odometry"]["frontend"]["args"].update(weight=str(CKPT), decoder_depth=2)
+    cfg.pop("Preprocess", None)
+    save_config(cfg, tmp / "MACVO_Performant_rehearsal.yaml")
+    return str(tmp / "MACVO_Performant_rehearsal.yaml")
+
+
+def _clip_as_general(root: Path, n: int, size: int) -> str:
+    """The clip's first ``n`` frames written as a GeneralStereo rig at ``root``
+    (a center crop of ``size`` in a rehearsal); returns its data config
+    ``<root>.yaml``."""
+    import numpy as np
+    import yaml
+
+    clip = read_clip(n)
+    fx, fy, cx, cy = CLIP_K
+    if size:
+        y0 = x0 = (640 - size) // 2
+        for cam in ("left", "right"):
+            clip[cam] = [np.ascontiguousarray(im[y0:y0 + size, x0:x0 + size]) for im in clip[cam]]
+        cx, cy = cx - x0, cy - y0
+    write_general_layout(root, clip["left"], clip["right"], clip["times_s"], clip["poses"])
+    cfg = root.parent / f"{root.name}.yaml"
+    cfg.write_text(yaml.safe_dump({"Sequence": {"type": "GeneralStereo", "args": {
+        "root": str(root), "fx": fx, "fy": fy, "cx": cx, "cy": cy, "baseline": CLIP_BASELINE,
+        "pose_file": str(root / "pose_lcam_front.txt")}}}))
+    return str(cfg)
+
+
+def _latent_launches() -> dict:
+    from macvo_tpu_torch.ops import latent_attn
+
+    return dict(latent_attn.latent_cross_attention.launches_by_dtype)
+
+
+def _one_fp32_launch_a_frame(phase: str, launches: dict, frames: int, on_card: bool) -> None:
+    if on_card and (launches["fp32"] != frames or launches["bf16"]):
+        raise AssertionError(f"{phase}: latent attention launches {launches} over {frames} frames, "
+                             "not one fp32 launch a frame")
+
+
+def phase_runner(device, size: int) -> dict:
+    """``python -m macvo_tpu_torch`` through its ``main``: MACVO_Performant.yaml
+    on the clip (10 frames, 640x640) with ``--timing`` into a result sandbox
+    under results/: its files, the JAX package's six timer sections, one
+    Odom_Runtime a frame, a finite device section of the frontend, one fp32
+    latent-attention launch a frame, ATE <= 0.05 m; the poses bit-identical
+    to a second run without ``--timing``; a third run with the stamp held at
+    the first's lands beside it with ``_<i>``; a run with ``--autoremove`` (a
+    process of its own) leaves no directory. ``--saveplt`` with its figures
+    where matplotlib is installed; where it is not, the runner must refuse the
+    flag before the run. Returns the latent-attention launches by run."""
+    import importlib.util
+    import json
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from macvo_tpu_torch.__main__ import main as run_main
+    from macvo_tpu_torch.evaluation import evaluate_sandbox
+    from macvo_tpu_torch.modules.frontend_network import DEVICE_SECTION
+    from macvo_tpu_torch.ops import latent_attn
+
+    on_card = device.type == "cuda"
+    launches = {}
+    (ROOT / "results").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "results", prefix="chip_smoke_runner_") as tmp, \
+            contextlib.chdir(ROOT):
+        tmp = Path(tmp)
+        data = str(ROOT / CLIP) if not size else _clip_as_general(tmp / "clip", 10, size)
+        results = tmp / "results"
+        argv = ["--odom", _performant_yaml(tmp, size), "--data", data, "--resultRoot", str(results),
+                "--device", device.type]
+        plots = importlib.util.find_spec("matplotlib") is not None
+        if not plots:
+            try:
+                run_main(argv + ["--saveplt"])
+            except ImportError as e:
+                if results.exists():
+                    raise AssertionError("runner: --saveplt without matplotlib made a sandbox before refusing")
+                emit("runner", "check", part="--saveplt", matplotlib=False,
+                     note="matplotlib is not installed here: the runner refused --saveplt before the run, as "
+                          "it should; the timed run goes without it (the figures are host code, tested on "
+                          "the CPU)", error=str(e))
+            else:
+                raise AssertionError("runner: --saveplt ran without matplotlib")
+
+        latent_attn.reset_launches()
+        start = time.perf_counter()
+        box = run_main(argv + ["--timing"] + (["--saveplt"] if plots else []))
+        _sync(device)
+        wall_s = time.perf_counter() - start
+        launches["runner (--timing, 10 frames)"] = _latent_launches()["fp32"]
+        rec = {"sandbox": str(box.folder.relative_to(tmp)), "wall_s": wall_s, "latent_attn_launches": _latent_launches(),
+               "files": sorted(p.name for p in box.folder.iterdir())}
+        missing = {"metadata.yaml", "config.yaml", "poses.npy", "elapsed_time.json"} - set(rec["files"])
+        if plots and not (box.folder / "plots").is_dir():
+            missing.add("plots/")
+        if missing:
+            raise AssertionError(f"runner: the sandbox lacks {sorted(missing)}")
+        elapsed = json.loads(box.path("elapsed_time.json").read_text())
+        poses = np.load(box.path("poses.npy"))
+        frames = poses.shape[0]
+        m = evaluate_sandbox(box)
+        rec.update(frames=frames, ATE_m=m["ATE"].rmse, RTE_m_per_frame=m["RTE"].rmse, ROE_deg_per_frame=m["ROE"].rmse,
+                   sections={k: len(v) for k, v in elapsed.items()},
+                   plots=sorted(p.name for p in box.path("plots").iterdir()) if plots else None)
+        emit("runner", "end", part="timed run", **rec)
+        emit("runner", "stage_medians", unit="ms", frames=frames,
+             **{k: statistics.median(v) for k, v in sorted(elapsed.items())})
+        if not set(RUNNER_STAGES) | {DEVICE_SECTION} <= set(elapsed):
+            raise AssertionError(f"runner: elapsed_time.json holds {sorted(elapsed)}, not {RUNNER_STAGES} "
+                                 f"and {DEVICE_SECTION!r}")
+        if len(elapsed["Odom_Runtime"]) != frames or frames != 10:
+            raise AssertionError(f"runner: {len(elapsed['Odom_Runtime'])} Odom_Runtime records over {frames} frames")
+        dev = elapsed[DEVICE_SECTION]
+        if len(dev) != frames - 1 or not np.isfinite(dev).all() or min(dev) <= 0:
+            raise AssertionError(f"runner: the frontend's device section {dev} over {frames - 1} pairs")
+        _one_fp32_launch_a_frame("runner", rec["latent_attn_launches"], frames, on_card)
+        if not size and rec["ATE_m"] > LEARNED_ATE["performant"]:
+            raise AssertionError(f"runner: ATE {rec['ATE_m']} m > {LEARNED_ATE['performant']} m")
+
+        latent_attn.reset_launches()
+        plain = run_main(argv)
+        launches["runner (untimed, 10 frames)"] = _latent_launches()["fp32"]
+        same = bool(np.array_equal(np.load(plain.path("poses.npy")), poses))
+        emit("runner", "check", part="timing off", sandbox=str(plain.folder.relative_to(tmp)), poses_bit_identical=same,
+             elapsed_time_json=plain.path("elapsed_time.json").exists())
+        if not same or plain.path("elapsed_time.json").exists():
+            raise AssertionError("runner: the run without --timing differs from the timed run")
+        _one_fp32_launch_a_frame("runner (untimed)", _latent_launches(), frames, on_card)
+
+        stamp = box.folder.name
+        expect = f"{stamp}_1" if plain.folder.name != f"{stamp}_1" else f"{stamp}_2"
+        latent_attn.reset_launches()
+        with held_stamp(stamp):
+            again = run_main(argv + ["--seq_to", "3", "--noeval"])
+        launches["runner (stamp held, 3 frames)"] = _latent_launches()["fp32"]
+        kept = bool(np.array_equal(np.load(box.path("poses.npy")), poses))
+        emit("runner", "check", part="stamp held", first=stamp, landed=again.folder.name, first_run_kept=kept)
+        if again.folder.name != expect or not kept or np.load(again.path("poses.npy")).shape[0] != 3:
+            raise AssertionError(f"runner: a run with the stamp {stamp} held went to {again.folder.name}, "
+                                 f"not {expect} (first run kept: {kept})")
+        _one_fp32_launch_a_frame("runner (stamp held)", _latent_launches(), 3, on_card)
+
+        before = sorted(p.name for p in box.folder.parent.iterdir())
+        start = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "macvo_tpu_torch", *argv, "--seq_to", "2", "--autoremove"],
+                              cwd=ROOT, capture_output=True, text=True, timeout=300)
+        after = sorted(p.name for p in box.folder.parent.iterdir())
+        emit("runner", "check", part="--autoremove (own process)", rc=proc.returncode, wall_s=time.perf_counter() - start,
+             sandboxes_before=before, sandboxes_after=after, evaluated="ATE" in proc.stdout)
+        if proc.returncode != 0 or after != before or "ATE" not in proc.stdout:
+            raise AssertionError(f"runner: --autoremove run rc {proc.returncode}, sandboxes {before} -> {after}: "
+                                 f"{proc.stderr[-2000:]}")
+    return {"latent_cross_attention[fp32]": launches}
+
+
+def posenet_step_parity(device, xb, yb) -> dict:
+    """One step of the pose-net trainer (VOFlowRes, random:0, the schedule of
+    a 20-step run) on one batch, on ``device`` with cuDNN off and on the CPU
+    in float64 and in fp32: the card's loss, gradients and updates against
+    the float64 step (the same weights, the ulps of their fp32 values), and,
+    reported beside it, against the fp32 CPU step. The first conv's weight
+    gradient sums 16 x 56 x 80 products that cancel: the CPU's fp32 sum is
+    2.3e-4 of the leaf's scale from the float64 sum on this batch, so the
+    fp32 CPU step is no oracle for it."""
+    import torch
+
+    from macvo_tpu_torch.train import posenet as pn
+
+    res = {}
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        for key, dev, dtype in (("cpu64", torch.device("cpu"), torch.float64), ("cpu", torch.device("cpu"), None),
+                                ("card", device, None)):
+            model = pn.build_model(dev)
+            before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+            if dtype is not None:
+                model = model.to(dtype)
+            opt, schedule = pn.make_optimizer(model, 20, 1e-4)
+            start = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+            x, y = torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev)
+            loss = pn.smooth_l1(model(x.to(dtype or x.dtype)), y.to(dtype or y.dtype))
+            loss.backward()
+            grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+            for group in opt.param_groups:
+                group["lr"] = schedule(0)
+            opt.step()
+            res[key] = {"loss": float(loss.detach()), "grads": grads, "lr": schedule(0),
+                        "update": {n: p.detach().cpu() - start[n] for n, p in model.named_parameters()},
+                        "weights": before}
+    finally:
+        torch.backends.cudnn.enabled = enabled
+    against_fp32 = _step_errors(res["cpu"], res["card"], float("inf"))
+    return {"batch": list(xb.shape), "cudnn": False, "reference": "CPU float64",
+            **_step_errors(res["cpu64"], res["card"], float("inf")),
+            "against_cpu_fp32": {k: against_fp32[k] for k in ("loss_rel_err", "grad_rel_err", "worst_leaves",
+                                                              "update_err_share_of_bound")},
+            "cpu_fp32_against_float64": {k: v for k, v in _step_errors(res["cpu64"], res["cpu"], float("inf")).items()
+                                         if k in ("loss_rel_err", "grad_rel_err", "worst_leaves")}}
+
+
+def phase_posenet(device, size: int) -> dict:
+    """The pose net's trainer on worlds the repo makes: two 24-frame
+    RandomizedStereo worlds written by scripts/torch_gen_randomized.py into a
+    temporary directory under results/ (render seconds reported), then
+    ``python -m macvo_tpu_torch.train.posenet --holdout 1 --steps 20 --batch 16``
+    through its ``main``: finite losses, steady ms a step, peak memory; one
+    step card (cuDNN off) against the CPU's float64 step within phase 12's
+    step-parity bounds;
+    the written npz as TartanMotionNet in Paper_Reproduce.yaml on 3 frames of
+    the clip: finite poses, one fp32 latent-attention launch a frame.
+    Returns the latent-attention launches."""
+    import tempfile
+
+    import numpy as np
+
+    from macvo_tpu_torch.data.datasets.tartanair import TartanAirV2
+    from macvo_tpu_torch.modules.frontend_tartanvo import TartanMotionNet
+    from macvo_tpu_torch.odometry import build_odometry
+    from macvo_tpu_torch.ops import latent_attn
+    from macvo_tpu_torch.train import posenet as pn
+    from macvo_tpu_torch.utils.config import load_config
+
+    on_card = device.type == "cuda"
+    h, w = POSENET_HW if not size else (48, 64)
+    (ROOT / "results").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "results", prefix="chip_smoke_posenet_") as tmp:
+        data, out = Path(tmp) / "randomized", Path(tmp) / "TartanVO_posenet.npz"
+        sys.path.insert(0, str(ROOT / "scripts"))
+        import torch_gen_randomized
+
+        start = time.perf_counter()
+        done = torch_gen_randomized.main(["--out", str(data), "--n_seqs", "2", "--n_frames", "24", "--width", str(w),
+                                          "--height", str(h), "--workers", "2"])
+        render_s = time.perf_counter() - start
+        emit("posenet", "check", part="worlds", render_s=render_s, worlds=len(done), frames=24, hw=[h, w],
+             workers=2, note="RandomizedStereo, supersample 2, rendered on the host")
+
+        _peak_reset(device)
+        rec = pn.main(["--data", str(data), "--holdout", "1", "--steps", "20", "--batch", "16", "--out", str(out),
+                       "--device", device.type])
+        steps_ms = [s["ms"] for s in rec["steps"]]
+        part = {"losses": [s["loss"] for s in rec["steps"]], "step_ms": [round(x, 3) for x in steps_ms],
+                "first_step_ms": steps_ms[0], "steady_ms_per_step": float(np.median(steps_ms[2:])),
+                "peak_bytes": _peak(device), "train": rec["train"], "eval": rec["eval"], "final_eval": rec["final_eval"],
+                "zero_motion": rec["zero_motion"], "batch": 16, "steps": 20}
+        emit("posenet", "end", part="trainer", **part)
+        if not np.isfinite(part["losses"]).all() or not np.isfinite(list(rec["final_eval"].values())).all():
+            raise AssertionError(f"posenet: non-finite losses or eval {part['losses']} {rec['final_eval']}")
+
+        if on_card:
+            (Xtr, Ytr), _ = pn.build_samples(sorted(data.glob("seq_*")), holdout=1)
+            idx = np.random.default_rng(0).integers(0, Xtr.shape[0], 16)
+            par = posenet_step_parity(device, Xtr[idx], Ytr[idx])
+            ok = (par["loss_rel_err"] <= PARITY_BOUNDS["loss_rel_err"]
+                  and par["grad_rel_err"] <= PARITY_BOUNDS["grad_rel_err"]
+                  and par["update_err_share_of_bound"] <= PARITY_BOUNDS["update_err_share_of_bound"])
+            emit("posenet", "check", part="step parity (card, cuDNN off, vs the CPU's float64 step)", agrees=ok,
+                 bounds=PARITY_BOUNDS, **par)
+            if not ok:
+                raise AssertionError(f"posenet: step parity out of its bounds: {par}")
+
+        cfg = load_config(ROOT / "configs/experiment/macvo/Paper_Reproduce.yaml")[0]
+        cfg.Odometry.frontend.args.weight = str(CKPT)
+        cfg.Odometry.motion.args.weight = str(out)
+        if size:
+            cfg.Odometry.frontend.args.decoder_depth = 2
+        clip = load_config(ROOT / CLIP)[0].Sequence.args
+        seq3 = TartanAirV2({"root": str(ROOT / clip.root), "compressed": True, "gtFlow": False, "gtDepth": False,
+                            "gtPose": True}).clip(0, 3)
+        system = build_odometry(cfg, device=device)
+        if not isinstance(system.MotionEstimator, TartanMotionNet):
+            raise AssertionError(f"posenet: the motion model is {type(system.MotionEstimator).__name__}")
+        latent_attn.reset_launches()
+        odo = run_odometry(cfg, CroppedSequence(seq3, size) if size else seq3, device, "posenet", system=system)
+        odo["latent_attn_launches"] = _latent_launches()
+        emit("posenet", "end", part="Paper_Reproduce with the trained pose net (3 frames)", **odo)
+        _one_fp32_launch_a_frame("posenet (Paper_Reproduce)", odo["latent_attn_launches"], odo["frames"], on_card)
+    return {"latent_cross_attention[fp32]": {"posenet.paper (trained pose net, 3 frames)":
+                                             odo["latent_attn_launches"]["fp32"]}}
+
+
+def phase_experiment(device, size: int) -> dict:
+    """scripts/torch_experiment_macvo.py through its ``main``:
+    MACVO_Performant.yaml over the clip's data config and the clip written as
+    a GeneralStereo rig, ``--seq_to 4``: evaluation.csv with one row a
+    sequence and the average, children.txt naming both, one fp32
+    latent-attention launch a frame. Returns the launches."""
+    import csv
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+
+    from macvo_tpu_torch.ops import latent_attn
+
+    on_card = device.type == "cuda"
+    spec = importlib.util.spec_from_file_location("torch_experiment_macvo", ROOT / "scripts/torch_experiment_macvo.py")
+    experiment = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(experiment)
+    (ROOT / "results").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "results", prefix="chip_smoke_experiment_") as tmp, \
+            contextlib.chdir(ROOT):
+        tmp = Path(tmp)
+        seqs = [str(ROOT / CLIP) if not size else _clip_as_general(tmp / "TartanAirv2_RealAsset", 4, size),
+                _clip_as_general(tmp / "GeneralStereo_clip", 4, size)]
+        latent_attn.reset_launches()
+        start = time.perf_counter()
+        parent = experiment.main(["--odom", _performant_yaml(tmp, size), "--data", *seqs, "--seq_to", "4",
+                                  "--resultRoot", str(tmp / "results"), "--device", device.type])
+        wall_s = time.perf_counter() - start
+        rows = list(csv.reader(parent.path("evaluation.csv").open()))
+        children = parent.path("children.txt").read_text().split()
+        rec = {"wall_s": wall_s, "rows": rows, "children": children, "latent_attn_launches": _latent_launches()}
+        emit("experiment", "end", **rec)
+        names = [Path(s).stem for s in seqs]
+        if children != names or [r[0] for r in rows] != ["sequence", *names, "Average"]:
+            raise AssertionError(f"experiment: children {children}, rows {[r[0] for r in rows]}, not {names}")
+        if not np.isfinite([[float(v) for v in r[1:]] for r in rows[1:]]).all():
+            raise AssertionError(f"experiment: non-finite metrics {rows}")
+        _one_fp32_launch_a_frame("experiment", rec["latent_attn_launches"], 8, on_card)
+    return {"latent_cross_attention[fp32]": {"experiment (2 sequences x 4 frames)": rec["latent_attn_launches"]["fp32"]}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
@@ -1763,7 +2147,15 @@ def main() -> int:
     launches["local_correlation_backward"] = sum(tvo["local_correlation_backward"].values())
     emit("train_tvo", "end", wall_s=time.perf_counter() - start)
 
-    # 17. kernels
+    # 17.-19. the runner with its tooling, the pose net's trainer, the batch experiment runner
+    for phase, fn in (("runner", phase_runner), ("posenet", phase_posenet), ("experiment", phase_experiment)):
+        emit(phase, "start")
+        start = time.perf_counter()
+        for name, parts in fn(device, args.size).items():
+            by_phase.setdefault(name, {}).update(parts)
+        emit(phase, "end", wall_s=time.perf_counter() - start)
+
+    # 20. kernels
     kernels = []
     for name, rec in kernel_recs.items():
         source, replaces = KERNEL_SOURCES[name.split("[")[0]]

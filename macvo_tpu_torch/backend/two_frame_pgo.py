@@ -9,6 +9,9 @@ float32 suffices on the card. Two ways in:
 * device chain (``start_optimize_device``): the odometry's packed per-frame
   sync array is consumed on the device directly (:func:`solve_sync_packed`),
   so the pose problem never waits for the host.
+
+The timer section ``TwoframePGO.dispatch`` is the host time of launching a
+solve on either way in (the JAX package times the host path only).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from ..geometry import camera, se3
 from ..odometry.layout import COL_KEEP, MIN_NUM_POINT, OBS_COLS
+from ..utils import timer
 from ..utils.device import resolve_device
 from ..worldmap import VisualMap
 from .interface import IOptimizer
@@ -175,8 +179,9 @@ class TwoFrame_PGO(IOptimizer[GraphInput, GraphOutput]):
                           packed=self._assemble(global_map, frame_idx))
 
     def _optimize(self, context: Any, graph_data: GraphInput) -> tuple[Any, GraphOutput]:
-        packed = torch.from_numpy(graph_data.packed).to(self.device)
-        pose = solve_two_frame_packed(packed, graph_type=context["graph_type"])
+        with timer.cpu_time("TwoframePGO.dispatch"):
+            packed = torch.from_numpy(graph_data.packed).to(self.device)
+            pose = solve_two_frame_packed(packed, graph_type=context["graph_type"])
         return context, GraphOutput(graph_data.frame_idx, graph_data.from_idx, pose)
 
     def write_graph_data(self, result: Optional[GraphOutput], global_map: VisualMap) -> None:
@@ -200,7 +205,8 @@ class Local_TwoFrame_PGO(TwoFrame_PGO):
                               baseline: torch.Tensor, frame_idx: int) -> None:
         if self._pending is not None:
             raise RuntimeError("start_optimize called while a job is pending")
-        pose = solve_sync_packed(sync_packed, anchor, cam, baseline, self.context["graph_type"])
+        with timer.cpu_time("TwoframePGO.dispatch"):
+            pose = solve_sync_packed(sync_packed, anchor, cam, baseline, self.context["graph_type"])
         self._pending = GraphOutput(frame_idx=frame_idx, from_idx=frame_idx - 1, pose=pose)
 
     def get_graph_data(self, global_map: VisualMap, frame_idx: int) -> GraphInput:

@@ -6,7 +6,9 @@ poses are exact by construction. Generation is numpy on the host, the same
 arithmetic as the JAX package's, so a config and seed give the same images,
 depths, flows and poses bit for bit; the frames carry them as CPU tensors
 (``DevicePrefetcher`` moves them to the card). The scene can also be written
-to disk in TartanAir v1 layout.
+to disk in TartanAir v1 layout, as the JAX package's writer writes it:
+``python -m macvo_tpu_torch.data.datasets.synthetic --out <dir> [--n_frames
+10 --width 640 --height 480]``.
 
 Conventions: NED world/camera (x forward, y right, z down), uv east-down,
 pose = camera-to-world ``[t, q_xyzw]``.
@@ -237,3 +239,16 @@ def write_sequence_tartanair_layout(seq, out_dir: str | Path) -> Path:
 def write_tartanair_layout(out_dir: str | Path, config: dict | None = None) -> Path:
     """Write a SyntheticStereo sequence of ``config`` in TartanAir v1 layout."""
     return write_sequence_tartanair_layout(SyntheticStereo(SimpleNamespace(**(config or {}))), out_dir)
+
+
+if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Write a SyntheticStereo sequence in TartanAir v1 layout")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--n_frames", type=int, default=10)
+    ap.add_argument("--width", type=int, default=640)
+    ap.add_argument("--height", type=int, default=480)
+    args = ap.parse_args()
+    path = write_tartanair_layout(args.out, {"n_frames": args.n_frames, "width": args.width, "height": args.height})
+    print(f"Wrote synthetic TartanAir-layout sequence to {path}")

@@ -2,7 +2,8 @@
 ``macvo_tpu/evaluation/trajectory.py``).
 
 A trajectory is an (N,7) pose array with (N,) timestamps. The runner writes
-``poses.npy`` and ``ref_poses.npy`` as (N,8) ``[time, t, q]``;
+``poses.npy`` and ``ref_poses.npy`` into its result sandbox as (N,8)
+``[time, t, q]``;
 :func:`load_sandbox_trajectories` interpolates the ground truth onto the
 estimate's timestamps where the two differ (a ground truth recorded at
 another rate, as in EuRoC).
@@ -16,6 +17,7 @@ from pathlib import Path
 import numpy as np
 
 from ..geometry.interp import interpolate_pose
+from ..utils.sandbox import Sandbox, as_path
 from . import metrics
 
 
@@ -42,10 +44,14 @@ class Trajectory:
                                      other.times.astype(np.float64))
         return Trajectory(interp, other.times.copy(), self.name)
 
+    def as_motions(self) -> np.ndarray:
+        """(N-1,4,4) relative motions ``inv(T_i) T_{i+1}``."""
+        return metrics._relative(metrics.poses_to_matrices(self.poses))
 
-def load_sandbox_trajectories(result_dir: str | Path) -> tuple[Trajectory, Trajectory]:
-    """(gt, est) of a result directory, gt interpolated onto est's timestamps."""
-    result_dir = Path(result_dir)
+
+def load_sandbox_trajectories(result_dir: Sandbox | str | Path) -> tuple[Trajectory, Trajectory]:
+    """(gt, est) of a result sandbox or directory, gt interpolated onto est's timestamps."""
+    result_dir = as_path(result_dir)
     est = Trajectory.from_file(result_dir / "poses.npy", name="est")
     gt = Trajectory.from_file(result_dir / "ref_poses.npy", name="gt")
     if gt.times.shape != est.times.shape or not np.allclose(gt.times, est.times):
@@ -53,6 +59,6 @@ def load_sandbox_trajectories(result_dir: str | Path) -> tuple[Trajectory, Traje
     return gt, est
 
 
-def evaluate_sandbox(result_dir: str | Path, correct_scale: bool = False) -> dict[str, metrics.MetricStats]:
+def evaluate_sandbox(result_dir: Sandbox | str | Path, correct_scale: bool = False) -> dict[str, metrics.MetricStats]:
     gt, est = load_sandbox_trajectories(result_dir)
     return metrics.evaluate_all(gt.poses.astype(np.float64), est.poses.astype(np.float64), correct_scale)

@@ -40,11 +40,15 @@ from ..data.frame import StereoData
 from ..geometry.camera import disparity_to_depth, disparity_to_depth_cov
 from ..models.flowformer import FlowFormerConfig, FlowFormerCov, InputPadder, normalize_cov
 from ..models.flowformer.weights import build_with_weights
+from ..utils import timer
 from ..utils.device import resolve_device
 from .frontend import DepthOutput, IFrontend, IMatcher, IStereoDepth, MatchOutput
 
 _DTYPES = ("fp32", "fp16", "bf16")
 _PRECISIONS = ("default", "high", "highest")
+#: timer section of a pair's frontend work on the device (CUDA events on the
+#: card), beside the host's "Frontend.forward"
+DEVICE_SECTION = "Frontend.forward (device)"
 
 
 def flow_to_depth(flow, cov, baseline: float, fx: float, enforce_positive: bool) -> DepthOutput:
@@ -174,14 +178,15 @@ class FlowFormerCovFrontend(IFrontend):
 
     @torch.inference_mode()
     def estimate_pair(self, frame_t1: StereoData, frame_t2: StereoData) -> tuple[DepthOutput, MatchOutput]:
-        cache = self._feat_cache
-        if cache is not None and cache[0] is frame_t1:
-            flow, cov, new_cache = self.runner.pair_cached(frame_t2.imageL, frame_t2.imageR, cache[1], cache[2])
-        else:
-            flow, cov, new_cache = self.runner.pair_cold(frame_t1.imageL, frame_t2.imageL, frame_t2.imageR)
-        self._feat_cache = (frame_t2, *new_cache)
-        depth = self._depth_output(flow[0:1], cov[0:1], frame_t2)
-        match = MatchOutput.from_partial_cov(flow=flow[1:2], cov=cov[1:2])
+        with timer.cpu_time("Frontend.forward"), timer.device_time(DEVICE_SECTION, self.device):
+            cache = self._feat_cache
+            if cache is not None and cache[0] is frame_t1:
+                flow, cov, new_cache = self.runner.pair_cached(frame_t2.imageL, frame_t2.imageR, cache[1], cache[2])
+            else:
+                flow, cov, new_cache = self.runner.pair_cold(frame_t1.imageL, frame_t2.imageL, frame_t2.imageR)
+            self._feat_cache = (frame_t2, *new_cache)
+            depth = self._depth_output(flow[0:1], cov[0:1], frame_t2)
+            match = MatchOutput.from_partial_cov(flow=flow[1:2], cov=cov[1:2])
         return depth, match
 
     @classmethod

@@ -2,7 +2,8 @@
 
 ``receive_frames`` runs every frame, keeps the GT poses, and at the end
 (also after an error, which it then re-raises) terminates the system and,
-given an output directory, writes ``poses.npy`` (time + body-frame SE3),
+given an output directory (a :class:`~macvo_tpu_torch.utils.sandbox.Sandbox`
+or a path), writes ``poses.npy`` (time + body-frame SE3),
 ``ref_poses.npy`` and ``tensor_map.npz``. With ``profile`` set, frame 2 runs
 under ``torch.profiler`` and its trace goes to ``trace/frame2.json`` in the
 output directory (Chrome trace format; card activity where there is a card).
@@ -11,17 +12,19 @@ output directory (Chrome trace format; card activity where there is a card).
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Callable, Generic, Iterable, Optional, TypeVar
+from typing import Callable, Generic, Iterable, Optional, TypeVar, Union
 
 import numpy as np
-import torch
 
 from ..data.frame import StereoFrame
 from ..geometry import se3_np
+from ..utils import timer
 from ..utils.logging import Logger
+from ..utils.sandbox import Sandbox, as_path
 from ..worldmap import VisualMap
 
 T_Frame = TypeVar("T_Frame", bound=StereoFrame)
+SaveTo = Union[Sandbox, str, Path]
 
 
 class IOdometry(Generic[T_Frame]):
@@ -39,14 +42,15 @@ class IOdometry(Generic[T_Frame]):
     def terminate(self) -> None:
         self.terminated = True
 
-    def receive_frames(self, sequence: Iterable[T_Frame], saveto: Optional[Path] = None,
+    def receive_frames(self, sequence: Iterable[T_Frame], saveto: Optional[SaveTo] = None,
                        on_frame_finished: Optional[Callable[[T_Frame, "IOdometry"], None]] = None) -> None:
         if self.profile and saveto is None:
             Logger.warning("profile: true needs an output directory for its trace; none is written")
+        saveto = None if saveto is None else as_path(saveto)
         try:
             for i, frame in enumerate(sequence):
                 if self.profile and i == 2 and saveto is not None:
-                    self.run_traced(frame, Path(saveto) / "trace")
+                    self.run_traced(frame, saveto / "trace")
                 else:
                     self.run(frame)
                 if frame.gt_pose is not None:
@@ -56,22 +60,16 @@ class IOdometry(Generic[T_Frame]):
         finally:
             self.terminate()
             if saveto is not None:
-                self.save_results(Path(saveto))
+                self.save_results(saveto)
 
     def run_traced(self, frame: T_Frame, trace_dir: Path) -> None:
         """``run(frame)`` under ``torch.profiler``; the trace goes to
         ``trace_dir/frame2.json``."""
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        trace_dir.mkdir(parents=True, exist_ok=True)
-        with torch.profiler.profile(activities=activities) as prof:
+        with timer.trace(trace_dir, "frame2.json"):
             self.run(frame)
-            if torch.cuda.is_available():
-                torch.cuda.synchronize()
-        prof.export_chrome_trace(str(trace_dir / "frame2.json"))
 
-    def save_results(self, saveto: Path) -> None:
+    def save_results(self, saveto: SaveTo) -> None:
+        saveto = as_path(saveto)
         saveto.mkdir(parents=True, exist_ok=True)
         graph = self.get_map()
         frames = graph.frames

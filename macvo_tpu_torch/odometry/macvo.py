@@ -35,6 +35,7 @@ from ..modules.keypoint import IKeypointSelector
 from ..modules.map_processor import IMapProcessor
 from ..modules.motion import IMotionModel
 from ..modules.outlier import IObservationFilter
+from ..utils import timer
 from ..utils.device import resolve_device
 from ..utils.logging import Logger
 from ..utils.registry import ConfigTestable
@@ -162,11 +163,12 @@ class MACVO(IOdometry[StereoFrame], ConfigTestable):
 
     @torch.inference_mode()
     def run(self, frame: StereoFrame) -> None:
-        if not self.is_initiated:
-            self.initialize(frame)
-            self.is_initiated = True
-            return
-        self.run_pair(self.prev_keyframe[0], frame)
+        with timer.cpu_time("Odom_Runtime"):
+            if not self.is_initiated:
+                self.initialize(frame)
+                self.is_initiated = True
+                return
+            self.run_pair(self.prev_keyframe[0], frame)
 
     def _sigma_uv_default(self, n: int) -> torch.Tensor:
         sigma = torch.full((n, 3), self.match_cov_default, dtype=torch.float32, device=self.device)
@@ -270,7 +272,9 @@ class MACVO(IOdometry[StereoFrame], ConfigTestable):
 
     def _register_sync(self, ctx: dict) -> None:
         """Register one frame's fetched sync into the host factor graph."""
-        obs_np, keep, pos0_Tw, cov0_Tw, color, est_pose, prev_pose = self.unpack_sync(ctx["fetch"].result())
+        with timer.cpu_time("Sync consume"):
+            packed = ctx["fetch"].result()
+        obs_np, keep, pos0_Tw, cov0_Tw, color, est_pose, prev_pose = self.unpack_sync(packed)
         prev_idx, frame_idx = ctx["prev_idx"], ctx["frame_idx"]
         self.graph.frames.data["pose"][frame_idx] = est_pose
         if ctx["backfill_idx"] is not None:
@@ -323,7 +327,8 @@ class MACVO(IOdometry[StereoFrame], ConfigTestable):
 
         # 1. Launch this pair's frontend first: the card works on it while the
         #    host registers the previous frame's sync.
-        depth1, match01 = self.Frontend.estimate_pair(frame0.stereo, frame1.stereo)
+        with timer.cpu_time("Frontend.estimate"):
+            depth1, match01 = self.Frontend.estimate_pair(frame0.stereo, frame1.stereo)
         # 2. Previous frame's sync (host path: this also launches its solve).
         self._consume_pending_sync()
         # 3. The anchor's optimized pose stays a device tensor.
@@ -337,8 +342,9 @@ class MACVO(IOdometry[StereoFrame], ConfigTestable):
         self.MotionEstimator.update(prev_pose)
         est_pose = self.MotionEstimator.predict(frame1, match01.flow, depth1.depth).float().reshape(7)
 
-        packed = self.keypoint_pipeline(frame0.stereo, frame1.stereo, depth0, depth1, match01,
-                                        prev_pose, est_pose)
+        with timer.cpu_time("KP pipeline"):
+            packed = self.keypoint_pipeline(frame0.stereo, frame1.stereo, depth0, depth1, match01,
+                                            prev_pose, est_pose)
         fetch = HostFetch(packed)
         mapping = None
         if self.mapping:

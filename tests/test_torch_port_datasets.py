@@ -593,7 +593,8 @@ def test_runner_on_a_kitti_layout_with_its_preprocess(kitti_root, tmp_path):
 
     main(["--odom", str(odom), "--data", str(data), "--seq_to", "3", "--preload", "--device", "cpu",
           "--resultRoot", str(tmp_path / "results")])
-    (out,) = (tmp_path / "results").iterdir()
+    (run,) = (tmp_path / "results").iterdir()       # <resultRoot>/<name>/<stamp>
+    (out,) = run.iterdir()
     poses = np.load(out / "poses.npy")
     assert poses.shape == (3, 8) and np.isfinite(poses).all()
     assert np.load(out / "ref_poses.npy").shape == (3, 8)

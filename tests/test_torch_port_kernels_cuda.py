@@ -523,3 +523,30 @@ def test_flow_steps_then_the_fused_forward_matches_the_unfused_one(cuda_device):
     unfused = model(*x)
     for k in ("flow_final", "cov_final"):
         torch.testing.assert_close(fused[k], unfused[k].detach(), atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_device_time_records_cuda_events_and_resolves_them_at_report(cuda_device, tmp_path):
+    """A device section on a CUDA tensor records two CUDA events and nothing
+    else; they turn into milliseconds at save_elapsed / report, one entry a
+    section, finite and at least the time of the work queued inside."""
+    import json
+
+    from macvo_tpu_torch.utils import timer
+
+    timer.setup(True)
+    timer.reset()
+    try:
+        x = torch.randn(2048, 2048, device=cuda_device)
+        for _ in range(3):
+            with timer.device_time("matmul", x):
+                for _ in range(8):
+                    x = torch.tanh(x @ x)
+        assert len(timer._STATE.pending) == 3 and "matmul" not in timer._STATE.records
+        timer.save_elapsed(tmp_path / "elapsed.json")
+        assert timer._STATE.pending == []
+        ms = json.loads((tmp_path / "elapsed.json").read_text())["matmul"]
+        assert len(ms) == 3 and all(np.isfinite(ms)) and min(ms) > 0
+    finally:
+        timer.setup(False)
+        timer.reset()

@@ -132,7 +132,9 @@ def test_runner_writes_poses(tmp_path):
         "root": str(ASSET), "compressed": True, "gtFlow": True, "gtDepth": True, "gtPose": True}}}))
     run_main(["--odom", str(odom), "--data", str(data), "--seq_to", "4", "--device", "cpu",
               "--resultRoot", str(tmp_path / "results")])
-    (out,) = (tmp_path / "results").iterdir()
+    (run,) = (tmp_path / "results").iterdir()       # <resultRoot>/<name>/<stamp>
+    assert run.name == "GT"
+    (out,) = run.iterdir()
     poses = np.load(out / "poses.npy")
     assert poses.shape == (4, 8) and np.isfinite(poses).all()
     assert np.load(out / "ref_poses.npy").shape == (4, 8)

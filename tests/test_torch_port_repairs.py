@@ -276,7 +276,8 @@ def test_runner_writes_its_config_and_a_frame_2_trace(tmp_path, monkeypatch):
     data.write_text(yaml.safe_dump(seq))
     run_main(["--odom", str(odom), "--data", str(data), "--seq_to", "3", "--device", "cpu",
               "--resultRoot", str(tmp_path / "results")])
-    (out,) = (tmp_path / "results").iterdir()
+    (run,) = (tmp_path / "results").iterdir()       # <resultRoot>/<name>/<stamp>
+    (out,) = run.iterdir()
     saved = yaml.safe_load((out / "config.yaml").read_text())
     assert saved["Odometry"] == cfg["Odometry"] and saved["Data"] == seq
     trace = json.loads((out / "trace" / "frame2.json").read_text())

@@ -195,6 +195,7 @@ def test_quickstart_runner_meets_the_bounds(tmp_path):
     320x240: its own Data section, PoseInterpolate, the bounds above."""
     run_main(["--odom", str(ROOT / "configs/experiment/macvo/MACVO_Synthetic.yaml"), "--device", "cpu",
               "--resultRoot", str(tmp_path)])
-    (out,) = tmp_path.iterdir()
+    (run,) = tmp_path.iterdir()                     # <resultRoot>/<name>/<stamp>
+    (out,) = run.iterdir()
     assert np.load(out / "poses.npy").shape == (10, 8)
     _assert_bounds(evaluate_sandbox(out))

@@ -314,8 +314,9 @@ def test_runner_needs_a_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="cuda"):
             run_main(argv)
     run_main(argv + ["--device", "cpu"])
-    (out,) = (tmp_path / "results").iterdir()
-    assert out.name.startswith("TartanVO-Baseline_")
+    (run,) = (tmp_path / "results").iterdir()       # <resultRoot>/<name>/<stamp>
+    assert run.name == "TartanVO-Baseline"
+    (out,) = run.iterdir()
     poses = np.load(out / "poses.npy")
     assert poses.shape == (2, 8) and np.isfinite(poses).all()
 
