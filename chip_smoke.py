@@ -18,7 +18,8 @@ Phases, each announced by a flushed, timestamped JSON line:
               graph, replayed between CUDA events) and ``device_bound_share``
               its bound share: the latent attention at N = 12,800 pixels, T = 100 tokens
               (bf16 and fp32), through both entry points (folded weights, as
-              the main path calls it, and the JAX signature); the local
+              the main path calls it, and the JAX signature), and in fp32 at
+              N = 51,200 (phase 20's one forward of four sequences); the local
               correlation at the five shapes of a 640x640 PWC forward and an
               odd one; its backward kernel (both gradients in one launch) at
               the five shapes of a trainer batch (4x320x448) and of a 640x640
@@ -156,7 +157,35 @@ Phases, each announced by a flushed, timestamped JSON line:
               GeneralStereo rig, ``--seq_to 4``: evaluation.csv with one row a
               sequence and the average, children.txt naming both, one fp32
               latent-attention launch a frame.
-20. kernels - one JSON line listing every ported kernel.
+20. batch   - BatchedOdometry (macvo_tpu_torch.parallel) with MACVO_Performant.yaml
+              over four 640x640 sequences in lockstep: the clip, the clip
+              backwards (re-stamped in ascending time), SyntheticStereo seeds 7
+              and 8 (rendered on host threads before any timed run). On the first
+              pair each sequence's flow within 1e-3 px (99.99th percentile; 5e-3 px
+              at most) and covariance within 1e-3 relative of the unbatched
+              frontend; one fp32 latent-attention launch
+              a lockstep step (N = 51,200); ATE <= 0.05 m both ways along the clip;
+              every sequence's ATE within 5 mm of its run alone through MACVO.
+              Lockstep and alone frames/s, the device's busy share of the
+              lockstep run (torch.profiler device time over the plain run's wall
+              time), peak memory.
+21. parallel - in a world of one over NCCL: the observation-sharded solve
+              bit-identical to solve_two_frame (37 and 40 observations, icp and
+              disp); one make_sharded_train_step cov step (FlowFormerCov_synth_cov.yaml,
+              bf16, batch 6 at 240x320, shipped checkpoint) leaving every
+              parameter bit-identical to make_train_step's, one bf16 launch a
+              step; then dryrun_multichip(1) in its own process, entry() on the
+              card against the CPU within phase 4's bound, and
+              scripts/torch_throughput.py --sequences 4 at 320x240.
+22. calib   - seq_1049 written by scripts/torch_gen_randomized.py at a cut size
+              (5 frames at 320x240); scripts/torch_fit_cov_temperature.py on the
+              shipped checkpoint into a temporary directory (edges ascending,
+              tau2 finite and positive, read back by load_cov_calib, raw and
+              recalibrated coverage); torch_cov_calibration.py on the clip;
+              torch_depth_quality.py and torch_match_quality.py on
+              the clip with GTDepth / GTMatcher; torch_montecarlo_cov.py at its
+              own --tol.
+23. kernels - one JSON line listing every ported kernel.
 
 Each learned run resets the kernels' launch counters right before it and
 reads them right after: every kernel of the path must have launched. Any
@@ -294,10 +323,10 @@ def latent_attn_bound_ms(n: int, t: int, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernel(device, n: int, t: int, timed: bool) -> dict:
-    """latent_cross_attention kernel vs its plain version, bf16 and fp32: the
-    entry the main path calls (weights folded beforehand) and the JAX-signature
-    wrapper (folds on every call). ``ms`` times the former."""
+def phase_kernel(device, n: int, t: int, timed: bool, dtypes=("bf16", "fp32")) -> dict:
+    """latent_cross_attention kernel vs its plain version, for each of
+    ``dtypes``: the entry the main path calls (weights folded beforehand) and
+    the JAX-signature wrapper (folds on every call). ``ms`` times the former."""
     import torch
 
     from macvo_tpu_torch.ops import latent_attn
@@ -312,7 +341,7 @@ def phase_kernel(device, n: int, t: int, timed: bool) -> dict:
     folded = latent_attn.fold_weights(wk, bk, wv, bv, q, wp, bias)
     tokens32 = rnd(n, t, 64)
     results = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in [{"bf16": torch.bfloat16, "fp32": torch.float32}[d] for d in dtypes]:
         tokens = tokens32.to(dtype)
         args = (tokens, wk, bk, wv, bv, q, wp, bias)
         outs = {"folded": latent_attn.latent_attn_folded(tokens, *folded),
@@ -1924,6 +1953,405 @@ def phase_experiment(device, size: int) -> dict:
     return {"latent_cross_attention[fp32]": {"experiment (2 sequences x 4 frames)": rec["latent_attn_launches"]["fp32"]}}
 
 
+BATCH_SEQS = 4                   # sequences in lockstep in phase batch
+BATCH_N = BATCH_SEQS * 2 * 6400  # their one forward's pixels at 1/8 (4 x 2 pairs x 80x80), the kernel's N
+# batched against unbatched on the first pair: flow 1e-3 px at the 99.99th percentile and 5e-3 px at
+# most (phase 4's card-against-CPU bound for fp32 sums in other orders through the 12 recurrent steps:
+# the batch-8 forward's cuDNN and cuBLAS algorithms sum in another order than the batch-2 one's);
+# covariance 1e-3 relative
+BATCH_FLOW_Q9999, BATCH_FLOW_MAX, BATCH_COV_REL = 1e-3, 5e-3, 1e-3
+BATCH_ATE_DIFF = 0.005           # |ATE(batched) - ATE(alone)| per sequence, m
+
+
+def _script(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _reversed_clip(frames: list) -> list:
+    """The clip backwards (frame n-1 first, each with its own ground-truth
+    pose), re-stamped with the forward clip's ascending times."""
+    import dataclasses
+
+    import numpy as np
+
+    n = len(frames)
+    return [dataclasses.replace(frames[n - 1 - i], idx=np.array([i]), stereo=dataclasses.replace(
+        frames[n - 1 - i].stereo, time_ns=frames[i].stereo.time_ns.copy())) for i in range(n)]
+
+
+def _render(seq, n: int) -> list:
+    """Frames 0..n-1 of a synthetic sequence, rendered on host threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(seq.__getitem__, range(n)))
+
+
+def _ate(frames: list, system) -> float:
+    import numpy as np
+
+    from macvo_tpu_torch.evaluation import evaluate_all
+
+    n = len(system.graph.frames)
+    gt = np.stack([np.asarray(f.gt_pose[0]) for f in frames]).astype(np.float64)
+    return float(evaluate_all(gt, system.graph.frames.data["pose"][:n].astype(np.float64))["ATE"].rmse)
+
+
+def phase_batch(device, size: int) -> dict:
+    """BatchedOdometry with MACVO_Performant.yaml (shipped checkpoint, fp32,
+    TF32 off, 12 decoder steps) over four 640x640 sequences in lockstep: the
+    clip, the clip backwards (re-stamped in ascending time), SyntheticStereo
+    seeds 7 and 8 (rendered before any timed run). Gates: on the first pair
+    each sequence's flow within 1e-3 px at the 99.99th percentile and 5e-3 px
+    at most, and its covariance within 1e-3 relative, of the unbatched
+    FlowFormerCovFrontend (fp32 with TF32 off: only cuDNN's and cuBLAS's
+    choices for batch 8 change the sum order); one fp32 latent-attention
+    launch a lockstep step; ATE <= 0.05 m both ways along the clip; each
+    sequence's ATE within 5 mm of its run alone through MACVO. Reports the
+    lockstep and alone frames/s, the stage timer's medians over steps 1-3 of
+    a second run, the device's busy share (kernel time over wall time of its
+    step 4 under the profiler) and the peak memory. Returns the
+    latent-attention launches."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from macvo_tpu_torch.data.datasets.synthetic import SyntheticStereo
+    from macvo_tpu_torch.data.datasets.tartanair import TartanAirV2
+    from macvo_tpu_torch.modules.frontend_network import FlowFormerCovFrontend
+    from macvo_tpu_torch.odometry import MACVO
+    from macvo_tpu_torch.ops import latent_attn
+    from macvo_tpu_torch.parallel import BatchedOdometry
+    from macvo_tpu_torch.parallel.batch_odometry import _with_precomputed_frontend
+    from macvo_tpu_torch.utils import timer
+    from macvo_tpu_torch.utils.config import load_config
+
+    on_card = device.type == "cuda"
+    n_frames, hw = (10, 640) if not size else (4, size)
+    (ROOT / "results").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "results", prefix="chip_smoke_batch_") as tmp:
+        cfg = load_config(_performant_yaml(Path(tmp), size))[0]
+    cfg.Odometry.frontend.args.weight = str(CKPT)
+    start = time.perf_counter()
+    clip = TartanAirV2({"root": str(CLIP_ROOT), "compressed": True, "gtFlow": False, "gtDepth": False,
+                        "gtPose": True})
+    clip = CroppedSequence(clip, size) if size else clip
+    forward = [clip[i] for i in range(n_frames)]
+    synth = [_render(SyntheticStereo({"n_frames": n_frames, "width": hw, "height": hw, "fx": hw / 2.0,
+                                      "fy": hw / 2.0, "seed": seed}), n_frames) for seed in (7, 8)]
+    names = ["clip", "clip_reversed", "synthetic_seed7", "synthetic_seed8"]
+    seqs = [[f.to(device) for f in s] for s in (forward, _reversed_clip(forward), *synth)]
+    _sync(device)
+    prepare_s = time.perf_counter() - start
+
+    driver = BatchedOdometry(cfg, n_sequences=BATCH_SEQS, device=device)
+    # first pair: the batched forward against the unbatched frontend (uncounted launches)
+    single = FlowFormerCovFrontend(cfg.Odometry.frontend.args, device=device)
+    single.runner = driver.frontend.runner
+    pairs = driver.frontend.forward_pairs([s[0].stereo for s in seqs], [s[1].stereo for s in seqs])
+    first_pair = {}
+    for name, s, (depth_b, match_b) in zip(names, seqs, pairs):
+        single.estimate_depth(s[0].stereo)
+        depth_s, match_s = single.estimate_pair(s[0].stereo, s[1].stereo)
+        diff = (match_b.flow - match_s.flow).abs().flatten()
+        first_pair[name] = {
+            "flow_abs_px_quantiles": {q: float(torch.quantile(diff, q)) for q in (0.5, 0.999, 0.9999)},
+            "flow_px_over_1e-3": int((diff > 1e-3).sum()),
+            "flow_max_abs_px": float(diff.max()),
+            "stereo_flow_max_abs_px": float((depth_b.disparity - depth_s.disparity).abs().max()),
+            "cov_max_rel": float(max(((match_b.cov[..., :2] - match_s.cov[..., :2]).abs()
+                                      / match_s.cov[..., :2].abs()).max(),
+                                     ((depth_b.disparity_uncertainty - depth_s.disparity_uncertainty).abs()
+                                      / depth_s.disparity_uncertainty.abs()).max()))}
+    del pairs
+    emit("batch", "check", part="first pair, batched against unbatched", flow_bound_px_q9999=BATCH_FLOW_Q9999,
+         flow_bound_px_max=BATCH_FLOW_MAX, cov_bound_rel=BATCH_COV_REL, **first_pair)
+    bad = {k: v for k, v in first_pair.items()
+           if v["flow_abs_px_quantiles"][0.9999] > BATCH_FLOW_Q9999 or v["cov_max_rel"] > BATCH_COV_REL
+           or max(v["flow_max_abs_px"], v["stereo_flow_max_abs_px"]) > BATCH_FLOW_MAX}
+    if bad:
+        raise AssertionError(f"batch: batched forward differs from the unbatched frontend {bad}")
+
+    # the lockstep run, counted and timed (its first step's batch-4 stereo forward warmed first)
+    driver.frontend.forward_depths([s[0].stereo for s in seqs])
+    _peak_reset(device)
+    latent_attn.reset_launches()
+    start = time.perf_counter()
+    for i in range(n_frames):
+        driver.step([s[i] for s in seqs])
+    driver.finish()
+    _sync(device)
+    lockstep_s = time.perf_counter() - start
+    launches = _latent_launches()
+    peak = _peak(device)
+    ate = {name: _ate(s, system) for name, s, system in zip(names, seqs, driver.systems)}
+
+    # a second run on the same model: the stage timer's sections over steps 1-3, then the
+    # device's busy share over step 4 under the profiler (kernels only: host events of a
+    # step number ~10^5 and take the profiler tens of seconds to sum)
+    busy = stages = None
+    if on_card:
+        frontend = driver.frontend
+        del driver
+        driver = BatchedOdometry(cfg, n_sequences=BATCH_SEQS, device=device, frontend=frontend)
+        driver.step([s[0] for s in seqs])
+        timer.reset()
+        timer.setup(True)
+        try:
+            for i in range(1, 4):
+                driver.step([s[i] for s in seqs])
+            _sync(device)
+            stages = {k: statistics.median(v) for k, v in timer.records().items()}
+        finally:
+            timer.setup(False)
+            timer.reset()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            driver.step([s[4] for s in seqs])
+            _sync(device)
+            window_ms = (time.perf_counter() - start) * 1e3
+        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        busy = {"steps": 1, "device_ms": device_ms, "wall_ms": window_ms, "busy_share": device_ms / window_ms}
+    del driver
+
+    # each sequence alone through MACVO (its frontend the unbatched one on the same model), one after another
+    alone_s, ate_alone = 0.0, {}
+    for name, s in zip(names, seqs):
+        system = MACVO.from_config(_with_precomputed_frontend(cfg), device=device)
+        system.Frontend = single
+        _sync(device)
+        start = time.perf_counter()
+        for f in s:
+            system.run(f)
+        system.terminate()
+        _sync(device)
+        alone_s += time.perf_counter() - start
+        ate_alone[name] = _ate(s, system)
+        del system
+    frames = BATCH_SEQS * n_frames
+    rec = {"sequences": names, "frames_each": n_frames, "hw": [hw, hw], "prepare_s": prepare_s,
+           "lockstep_s": lockstep_s, "lockstep_frames_per_s": frames / lockstep_s,
+           "alone_s": alone_s, "alone_frames_per_s": frames / alone_s, "speedup": alone_s / lockstep_s,
+           "device_busy": busy, "stage_ms_median": stages, "peak_memory_bytes": peak,
+           "latent_attn_launches": launches,
+           "ATE_m": ate, "ATE_alone_m": ate_alone, "ate_bound_m": LEARNED_ATE["performant"],
+           "ate_diff_bound_m": BATCH_ATE_DIFF}
+    emit("batch", "end", **rec)
+    if on_card and (launches["fp32"] != n_frames or launches["bf16"]):
+        raise AssertionError(f"batch: latent attention launches {launches} over {n_frames} lockstep steps, "
+                             "not one fp32 launch a step")
+    if not size:
+        for name in ("clip", "clip_reversed"):
+            if ate[name] > LEARNED_ATE["performant"]:
+                raise AssertionError(f"batch: {name} ATE {ate[name]} m > {LEARNED_ATE['performant']} m")
+        diff = {k: abs(ate[k] - ate_alone[k]) for k in names}
+        if max(diff.values()) > BATCH_ATE_DIFF or not np.isfinite(list(ate.values())).all():
+            raise AssertionError(f"batch: ATE batched against alone differs by {diff} m")
+    return {"latent_cross_attention[fp32]": {f"batch ({BATCH_SEQS} sequences x {n_frames} lockstep steps)":
+                                             launches["fp32"]}}
+
+
+def _sharded_cov_step(device, size: int) -> dict:
+    """One make_sharded_train_step cov step (FlowFormerCov_synth_cov.yaml,
+    bf16, the shipped checkpoint) in a world of one against make_train_step on
+    the same batch: every parameter bit-identical (cuDNN deterministic for
+    the comparison), one bf16 launch a step."""
+    import numpy as np
+    import torch
+
+    from macvo_tpu_torch.data.datasets.train import TrainPairDataset
+    from macvo_tpu_torch.ops import latent_attn
+    from macvo_tpu_torch.train import create_optimizer, make_sharded_train_step, make_train_step, run
+    from macvo_tpu_torch.utils.config import load_config
+
+    cfg = load_config(ROOT / "configs/train/FlowFormerCov_synth_cov.yaml")[0]
+    if size:
+        cfg.Model.decoder_depth = 2
+        cfg.Train.image_height, cfg.Train.image_width, cfg.Train.batch_size = 64, 96, 2
+    tcfg = run.train_config(cfg)
+    h, w, bs = int(cfg.Train.image_height), int(cfg.Train.image_width), int(cfg.Train.batch_size)
+    dataset = TrainPairDataset(cfg.Data.Sequences, cfg.Data.transforms, stereo_prob=float(cfg.Data.stereo_prob))
+    batch = dataset.draw(bs, h, w, np.random.default_rng(int(cfg.Train.seed)))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {}
+        for kind, make in (("single", make_train_step), ("sharded", make_sharded_train_step)):
+            model = _train_model(cfg, device, CKPT)
+            opt = create_optimizer(model, tcfg)
+            step = make(model, opt, tcfg, device)
+            latent_attn.reset_launches()
+            aux = step(batch)
+            _sync(device)
+            out[kind] = {"loss": float(aux["loss"]), "launches": _latent_launches(),
+                         "params": [p.detach().clone() for p in model.parameters()]}
+            del model, opt, step
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same = all(torch.equal(a, b) for a, b in zip(out["single"]["params"], out["sharded"]["params"]))
+    rec = {"batch": bs, "crop_hw": [h, w], "dtype": str(cfg.Model.encoder_dtype), "params_bit_identical": same,
+           "loss": {k: v["loss"] for k, v in out.items()}, "launches": {k: v["launches"] for k, v in out.items()}}
+    emit("parallel", "check", part="sharded cov step, world of one, against the single-process step", **rec)
+    if not same or out["single"]["loss"] != out["sharded"]["loss"]:
+        raise AssertionError(f"parallel: the sharded step differs from the single-process step {rec}")
+    if device.type == "cuda" and any(v["launches"] != {"fp32": 0, "bf16": 1} for v in out.values()):
+        raise AssertionError(f"parallel: latent attention launches {rec['launches']}, not one bf16 launch a step")
+    return rec
+
+
+def phase_parallel(device, size: int) -> dict:
+    """The multi-process paths on one card, in a world of one over NCCL (gloo
+    in the rehearsal): the observation-sharded solve bit-identical to
+    solve_two_frame on 37 and 40 observations (icp and disp); one sharded cov
+    training step bit-identical to the single-process step; then
+    ``dryrun_multichip(1)`` (its own process), ``entry()`` on the card
+    against the CPU within phase 4's network bound (5e-3), and
+    scripts/torch_throughput.py --sequences 4 at 320x240 through its ``main``.
+    Returns the latent-attention launches."""
+    import torch
+    import torch.distributed as dist
+
+    from macvo_tpu_torch.backend.solver import solve_two_frame
+    from macvo_tpu_torch.entry import dryrun_multichip, entry, solve_example
+    from macvo_tpu_torch.ops import latent_attn
+    from macvo_tpu_torch.parallel import make_sharded_solver
+    from macvo_tpu_torch.parallel.mesh import free_port, join_group
+
+    on_card = device.type == "cuda"
+    join_group(f"127.0.0.1:{free_port()}", 1, 0, device=device)
+    try:
+        backend = dist.get_backend()
+        solves = {}
+        for n in (37, 40):
+            for graph in ("icp", "disp"):
+                data = solve_example(n, dtype=torch.float32, device=device)
+                sharded = make_sharded_solver(None, graph)(data)
+                single = solve_two_frame(data, graph_type=graph)
+                solves[f"{graph} n={n}"] = {"bit_identical": bool(torch.equal(sharded, single)),
+                                            "max_abs_diff": float((sharded - single).abs().max())}
+        emit("parallel", "check", part="sharded solve, world of one", backend=backend, **solves)
+        if not all(v["bit_identical"] for v in solves.values()):
+            raise AssertionError(f"parallel: sharded solve differs from solve_two_frame {solves}")
+        step = _sharded_cov_step(device, size)
+    finally:
+        dist.destroy_process_group()
+
+    start = time.perf_counter()
+    dry = dryrun_multichip(1, device=device)
+    emit("parallel", "check", part="dryrun_multichip(1)", wall_s=time.perf_counter() - start, **dry)
+
+    fn, (state, img1, img2) = entry(device=device)
+    cpu_fn, (cpu_state, _, _) = entry(device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    a = torch.rand((1, 64, 96, 3), generator=gen)
+    b = torch.roll(a, 2, dims=2)
+    latent_attn.reset_launches()
+    out = fn(state, a.to(device), b.to(device))
+    entry_launches = _latent_launches()
+    ref = cpu_fn(cpu_state, a, b)
+    errs = [float((o.cpu() - r).abs().max()) for o, r in zip(out, ref)]
+    emit("parallel", "check", part="entry() card against CPU", max_abs_err={"flow": errs[0], "cov": errs[1]},
+         atol=5e-3, launches=entry_launches)
+    if max(errs) > 5e-3 or not all(bool(torch.isfinite(o).all()) for o in out):
+        raise AssertionError(f"parallel: entry() on the card differs from the CPU by {errs}")
+
+    argv = ["--sequences", "4", "--device", device.type]
+    argv += ["--width", "320", "--height", "240"] if not size else ["--width", "96", "--height", "64",
+                                                                      "--frames", "4", "--decoder_depth", "2"]
+    latent_attn.reset_launches()
+    start = time.perf_counter()
+    tput = _script("torch_throughput").main(argv)
+    tput_launches = _latent_launches()
+    emit("parallel", "end", part="torch_throughput.py", wall_s=time.perf_counter() - start, result=tput,
+         launches=tput_launches)
+    return {"latent_cross_attention[bf16]": {"parallel.cov step (single + sharded)": sum(
+                v["bf16"] for v in step["launches"].values()),
+                "parallel.torch_throughput (1 + 4 sequences)": tput_launches["bf16"]},
+            "latent_cross_attention[fp32]": {"parallel.entry": entry_launches["fp32"]}}
+
+
+def phase_calib(device, size: int) -> dict:
+    """The calibration and analysis scripts through their ``main``: the
+    holdout world seq_1049 written by scripts/torch_gen_randomized.py at a
+    cut size (5 frames at 320x240); torch_fit_cov_temperature.py on the
+    shipped checkpoint with --out in a temporary directory (edges ascending,
+    tau2 finite and positive), read back by load_cov_calib, raw and
+    recalibrated coverage side by side; torch_cov_calibration.py on the clip;
+    torch_depth_quality.py / torch_match_quality.py on
+    the clip with GTDepth / GTMatcher; torch_montecarlo_cov.py at its own
+    --tol. Returns the latent-attention launches."""
+    import json
+    import math
+    import tempfile
+
+    import numpy as np
+
+    from macvo_tpu_torch.modules.frontend_network import load_cov_calib
+    from macvo_tpu_torch.ops import latent_attn
+
+    dev = ["--device", device.type]
+    small = [] if not size else ["--decoder_depth", "2", "--dtype", "fp32"]
+    (ROOT / "results").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "results", prefix="chip_smoke_calib_") as tmp:
+        tmp = Path(tmp)
+        start = time.perf_counter()
+        frames, w, h = (5, 320, 240) if not size else (3, 96, 64)
+        _script("torch_gen_randomized").gen_one((1049, frames, w, h, str(tmp)))
+        world_s = time.perf_counter() - start
+        latent_attn.reset_launches()
+        start = time.perf_counter()
+        fit = _script("torch_fit_cov_temperature").main(
+            ["--weight", str(CKPT), "--root", str(tmp / "seq_1049"), "--max_pairs", str(frames - 1),
+             "--out", str(tmp / "fit.calib.json")] + small + dev)
+        fit_launches = _latent_launches()
+        edges, tau2 = load_cov_calib(str(tmp / "fit.calib.json"), str(CKPT))
+        readback = (np.allclose(edges.cpu().numpy(), fit["log10_sigma_edges"], rtol=1e-6)
+                    and np.allclose(tau2.cpu().numpy(), fit["tau2"], rtol=1e-6))
+        emit("calib", "check", part="fit", world=[frames, h, w], world_s=world_s,
+             fit_s=time.perf_counter() - start, edges=fit["log10_sigma_edges"], tau2=fit["tau2"],
+             coverage_raw=fit["fit_coverage_raw"], coverage_recalibrated=fit["fit_coverage_recalibrated"],
+             read_back=readback, launches=fit_launches)
+        if not (np.all(np.diff(fit["log10_sigma_edges"]) > 0) and all(math.isfinite(t) and t > 0 for t in fit["tau2"])
+                and readback):
+            raise AssertionError(f"calib: fit {fit} (read back {readback})")
+        if CKPT.with_suffix(".calib.json").exists():
+            raise AssertionError("calib: a calibration file was written beside the shipped checkpoint")
+
+        data = ["--data", "real", "--max_pairs", "3"] if not size else ["--data", "synthetic", "--max_pairs", "1"]
+        latent_attn.reset_launches()
+        report = _script("torch_cov_calibration").main(
+            ["--weight", str(CKPT), "--out", str(tmp / "cov_calibration"), "--calib", "none"] + data + small[:2] + dev)
+        cal_launches = _latent_launches()
+        emit("calib", "check", part="cov_calibration", launches=cal_launches,
+             **{f: report[f] for f in ("pairs", "epe", "nll", "chi2_coverage")})
+        if not math.isfinite(report["nll"]):
+            raise AssertionError(f"calib: cov_calibration {report}")
+
+        clip = str(ROOT / CLIP)
+        with contextlib.chdir(ROOT):        # the clip's data config names its root relative to the checkout
+            depth = _script("torch_depth_quality").main(["--data", clip, "--module", json.dumps(
+                {"type": "GTDepth", "args": {}})] + dev)
+            match = _script("torch_match_quality").main(["--data", clip, "--module", json.dumps(
+                {"type": "GTMatcher", "args": {}})] + dev)
+        mc = _script("torch_montecarlo_cov").main([] if not size else ["--samples", "200000"])
+        emit("calib", "end", depth_quality=depth, match_quality=match, montecarlo_exit=mc)
+        if depth["depth"]["masked_err"] != 0.0 or match[0]["flow"]["epe"] != 0.0 or mc != 0:
+            raise AssertionError(f"calib: GT depth {depth}, GT match {match}, montecarlo exit {mc}")
+    out = {"latent_cross_attention[bf16]": {}, "latent_cross_attention[fp32]": {}}
+    key = "bf16" if not size else "fp32"
+    out[f"latent_cross_attention[{key}]"][f"calib.fit ({fit['pairs']} pairs)"] = fit_launches[key]
+    out["latent_cross_attention[fp32]"][f"calib.cov_calibration ({report['pairs']} pairs)"] = cal_launches["fp32"]
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
@@ -1971,6 +2399,8 @@ def main() -> int:
     # 3. kernel
     emit("kernel", "start")
     kernel_recs = phase_kernel(device, 12800 if on_card else 64, 100 if on_card else 4, timed=on_card)
+    batch_kernel = phase_kernel(device, BATCH_N if on_card else 256, 100 if on_card else 4, timed=on_card,
+                                dtypes=("fp32",))["latent_cross_attention[fp32]"]
     corr_shapes = CORR_SHAPES + [CORR_ODD] if on_card else [(1, 8, 12, 16), (1, 16, 5, 7)]
     kernel_recs.update(phase_correlation(device, corr_shapes, timed=on_card))
     bwd_shapes = CORR_BWD_SHAPES if on_card else {"rehearsal": [(2, 8, 12, 16), (1, 16, 5, 7)]}
@@ -2155,7 +2585,15 @@ def main() -> int:
             by_phase.setdefault(name, {}).update(parts)
         emit(phase, "end", wall_s=time.perf_counter() - start)
 
-    # 20. kernels
+    # 20.-22. batched odometry, the multi-process paths, the calibration and analysis scripts
+    for phase, fn in (("batch", phase_batch), ("parallel", phase_parallel), ("calib", phase_calib)):
+        emit(phase, "start")
+        start = time.perf_counter()
+        for name, parts in fn(device, args.size).items():
+            by_phase.setdefault(name, {}).update(parts)
+        emit(phase, "end", wall_s=time.perf_counter() - start)
+
+    # 23. kernels
     kernels = []
     for name, rec in kernel_recs.items():
         source, replaces = KERNEL_SOURCES[name.split("[")[0]]
@@ -2169,6 +2607,10 @@ def main() -> int:
         if "other_sets" in rec:
             kernels[-1]["shapes"] = rec["shapes"]
             kernels[-1]["other_shape_sets"] = rec["other_sets"]
+        if name == "latent_cross_attention[fp32]":
+            kernels[-1]["batched_frontend_shape"] = {k: batch_kernel.get(k) for k in (
+                "shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
+                "device_bound_share")}
         if name in by_phase:
             kernels[-1]["launches_by_phase"] = by_phase[name]
     print(json.dumps({"kernels": kernels}), flush=True)

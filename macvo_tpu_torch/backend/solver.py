@@ -16,11 +16,17 @@ first accepted candidate is the one the sequential loop would take.
 
 dtype follows the inputs: float64 on the CPU (reference-grade), float32 on the
 card together with the local re-anchoring of ``Local_TwoFrame_PGO``.
+
+``reduce`` is the counterpart of the JAX solver's ``axis_name``: when each
+process holds a shard of the observations (``parallel/sharded_ba.py``), it
+sums the per-shard loss, normal matrix and gradient, and the candidate
+losses, over the process group, after which every process runs the identical
+6x6 update.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -149,8 +155,13 @@ def solve_two_frame(data: TwoFrameData, graph_type: str = "icp", huber_delta: fl
                     damping_init: float = 1e-3, damping_up: float = 4.0, damping_down: float = 0.5,
                     damping_min: float = 1e-9, damping_max: float = 1e10, diag_min: float = 1e-6,
                     diag_max: float = 1e32, plateau_decreasing: float = 1e-5,
-                    plateau_patience: int = 2, max_steps: int = 10, max_rejects: int = 16) -> torch.Tensor:
-    """Run the damped LM solve; returns the optimized (7,) SE3 pose."""
+                    plateau_patience: int = 2, max_steps: int = 10, max_rejects: int = 16,
+                    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
+    """Run the damped LM solve; returns the optimized (7,) SE3 pose.
+
+    ``reduce``: None for a solve over all of ``data``; else a function that
+    sums a tensor over the processes that hold the other observation shards
+    (one call a system, one a set of candidates)."""
     terms_fn = GRAPH_TERMS[graph_type]
     dtype, dev = data.points_w.dtype, data.points_w.device
     mask_f = data.mask.to(dtype)
@@ -164,7 +175,8 @@ def solve_two_frame(data: TwoFrameData, graph_type: str = "icp", huber_delta: fl
         return r, J, W, e, torch.sum(rho * mask_f, dim=-1)
 
     def loss_only(twists):                              # (C,6) -> (C,)
-        return whitened(se3.mul(data.pose0, se3.exp(twists)))[-1]
+        loss = whitened(se3.mul(data.pose0, se3.exp(twists)))[-1]
+        return loss if reduce is None else reduce(loss)
 
     def system(twist):                                  # (6,) -> loss, A (6,6), b (6,)
         r, J, W, e, loss = whitened(se3.mul(data.pose0, se3.exp(twist))[None])
@@ -172,7 +184,10 @@ def solve_two_frame(data: TwoFrameData, graph_type: str = "icp", huber_delta: fl
         Weff = W.expand(r.shape[:-1] + W.shape[-2:]) * w[..., None, None]
         A = torch.einsum("cndi,cndk,cnkj->ij", J, Weff, J)
         b = -torch.einsum("cndi,cndk,cnk->i", J, Weff, r)
-        return loss[0], A, b
+        if reduce is None:
+            return loss[0], A, b
+        summed = reduce(torch.cat([loss[:1], A.reshape(36), b]))
+        return summed[0], summed[1:37].reshape(6, 6), summed[37:]
 
     ks = torch.arange(max_rejects + 1, device=dev, dtype=dtype)
     idx6 = torch.arange(6, device=dev)

@@ -12,6 +12,11 @@ from __future__ import annotations
 import torch
 
 
+def intrinsics(fx: float, fy: float, cx: float, cy: float, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """The (3,3) pinhole matrix."""
+    return torch.tensor([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]], dtype=dtype, device=device)
+
+
 def pixel_to_point_ned(kp_uv: torch.Tensor, depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     """(..., 2) pixels + (...,) depth -> (..., 3) NED camera points."""
     fx, fy = K[..., 0, 0], K[..., 1, 1]

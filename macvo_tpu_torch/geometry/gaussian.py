@@ -45,3 +45,16 @@ def gaussian_mixture_mean_var(means: torch.Tensor, variances: torch.Tensor, prob
     mean = torch.sum(means * probs, dim=1)
     var = torch.sum((variances + means * means) * probs, dim=1) - mean * mean
     return mean, var / 2.0
+
+
+def mahalanobis(x: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """sqrt((x-mu)^T Sigma^-1 (x-mu)) for (N,F) points and (N,F,F) covariances."""
+    diff = x - mu
+    sol = torch.linalg.solve(sigma, diff[..., None])[..., 0]
+    return torch.sqrt(torch.clamp(torch.einsum("...i,...i->...", diff, sol), min=0.0))
+
+
+def mahalanobis_inv(x: torch.Tensor, mu: torch.Tensor, sigma_inv: torch.Tensor) -> torch.Tensor:
+    """As :func:`mahalanobis`, given the inverse covariances."""
+    diff = x - mu
+    return torch.sqrt(torch.clamp(torch.einsum("...i,...ij,...j->...", diff, sigma_inv, diff), min=0.0))

@@ -88,6 +88,35 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
 
 # -- SO(3) exp/log -------------------------------------------------------------
 
+def quat_from_matrix(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (...,3,3) -> unit quaternion, branch-free: Shepperd's
+    four candidates, the one of the largest diagonal term taken by ``torch.where``."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=_EPS))
+
+    qw0 = 0.5 * safe_sqrt(1.0 + tr)
+    s0 = 4.0 * qw0
+    cand0 = torch.stack([(m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0, qw0], -1)
+    qx1 = 0.5 * safe_sqrt(1.0 + m00 - m11 - m22)
+    s1 = 4.0 * qx1
+    cand1 = torch.stack([qx1, (m01 + m10) / s1, (m02 + m20) / s1, (m21 - m12) / s1], -1)
+    qy2 = 0.5 * safe_sqrt(1.0 - m00 + m11 - m22)
+    s2 = 4.0 * qy2
+    cand2 = torch.stack([(m01 + m10) / s2, qy2, (m12 + m21) / s2, (m02 - m20) / s2], -1)
+    qz3 = 0.5 * safe_sqrt(1.0 - m00 - m11 + m22)
+    s3 = 4.0 * qz3
+    cand3 = torch.stack([(m02 + m20) / s3, (m12 + m21) / s3, qz3, (m10 - m01) / s3], -1)
+    q = torch.where((tr > 0.0)[..., None], cand0,
+                    torch.where(((m00 >= m11) & (m00 >= m22))[..., None], cand1,
+                                torch.where((m11 >= m22)[..., None], cand2, cand3)))
+    return quat_normalize(q)
+
+
 def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     """Rotation vector (...,3) -> quaternion."""
     angle = _safe_norm(phi, keepdim=True)
@@ -199,3 +228,22 @@ def rotmat(pose: torch.Tensor) -> torch.Tensor:
 def normalize(pose: torch.Tensor) -> torch.Tensor:
     """Renormalize the quaternion part."""
     return from_t_q(translation(pose), quat_normalize(quaternion(pose)))
+
+
+def matrix(pose: torch.Tensor) -> torch.Tensor:
+    """Pose -> homogeneous (...,4,4)."""
+    out = torch.zeros(pose.shape[:-1] + (4, 4), dtype=pose.dtype, device=pose.device)
+    out[..., :3, :3] = rotmat(pose)
+    out[..., :3, 3] = translation(pose)
+    out[..., 3, 3] = 1.0
+    return out
+
+
+def from_matrix(m: torch.Tensor) -> torch.Tensor:
+    """Homogeneous (...,4,4) -> pose."""
+    return from_t_q(m[..., :3, 3], quat_from_matrix(m[..., :3, :3]))
+
+
+def relative(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a^-1 @ b: the motion taking frame a to frame b."""
+    return mul(inv(a), b)

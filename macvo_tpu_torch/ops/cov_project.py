@@ -28,6 +28,11 @@ def covariance_2to3_full(sigma_uu, sigma_uv, sigma_vv, sigma_dd, u, v, d, fx, fy
     return torch.stack([row0, row1, row2], dim=-2)
 
 
+def covariance_2to3_diag(sigma_uu, sigma_vv, sigma_dd, u, v, d, fx, fy, cx, cy) -> torch.Tensor:
+    """:func:`covariance_2to3_full` of a diagonal pixel covariance (sigma_uv = 0)."""
+    return covariance_2to3_full(sigma_uu, torch.zeros_like(sigma_uu), sigma_vv, sigma_dd, u, v, d, fx, fy, cx, cy)
+
+
 def gather_patches(dense: torch.Tensor, kp_uv: torch.Tensor, kernel_size: int) -> torch.Tensor:
     """(K,K) patches of an (H,W) map around N keypoints -> (N,K,K) with
     ``patches[n, i, j] = dense[v_n + off_j, u_n + off_i]``; taps clamp to the border."""

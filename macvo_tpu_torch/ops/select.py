@@ -27,9 +27,14 @@ def max_pool2d(x: torch.Tensor, kernel_size: int) -> torch.Tensor:
     return F.max_pool2d(x[None, None], kernel_size, stride=1, padding=kernel_size // 2)[0, 0]
 
 
+def min_pool2d(x: torch.Tensor, kernel_size: int) -> torch.Tensor:
+    """Same-size min pool of an (H,W) map."""
+    return -max_pool2d(-x, kernel_size)
+
+
 def local_min_nms(quality: torch.Tensor, kernel_size: int) -> torch.Tensor:
     """True where ``quality`` is the local minimum (lower = better) and not NaN."""
-    eroded = -max_pool2d(-quality, kernel_size)
+    eroded = min_pool2d(quality, kernel_size)
     return (quality == eroded) & ~torch.isnan(quality)
 
 
@@ -69,6 +74,18 @@ def masked_random_topk(mask: torch.Tensor, k: int, generator: torch.Generator) -
     h, w = mask.shape
     scores = torch.rand((h * w,), generator=generator, device=mask.device)
     scores = torch.where(mask.reshape(-1), scores, torch.full_like(scores, -float("inf")))
+    vals, flat_idx = torch.topk(scores, k)
+    valid = torch.isfinite(vals)
+    uv = torch.stack([flat_idx % w, flat_idx // w], dim=-1).to(torch.int32)
+    return torch.where(valid[:, None], uv, torch.zeros_like(uv)), valid
+
+
+def masked_score_topk(score: torch.Tensor, mask: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-K positions of an (H,W) score where ``mask`` holds and the score is
+    not NaN (higher = better): (uv (K,2) int32, valid (K,) bool), as
+    :func:`masked_random_topk` returns them."""
+    w = score.shape[1]
+    scores = torch.where(mask & ~torch.isnan(score), score, torch.full_like(score, -float("inf"))).reshape(-1)
     vals, flat_idx = torch.topk(scores, k)
     valid = torch.isfinite(vals)
     uv = torch.stack([flat_idx % w, flat_idx // w], dim=-1).to(torch.int32)

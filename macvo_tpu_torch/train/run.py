@@ -6,7 +6,17 @@ Usage:
         [--device cuda|cpu]
 
 Trains on one device, ``cuda`` unless ``--device cpu`` is given (asking for
-``cuda`` without a card raises). Data comes from a single sequence
+``cuda`` without a card raises). Under ``torchrun`` (``WORLD_SIZE`` > 1) it
+trains data-parallel, one process a device (``nccl`` on the cards, ``gloo``
+with ``--device cpu``):
+
+    torchrun --nproc_per_node <cards> -m macvo_tpu_torch.train.run --config ...
+
+Every process draws the same global batch stream from the same seed and
+trains on its rows (``make_sharded_train_step``); the batch is rounded down
+to a multiple of the process count, as the JAX runner rounds it to its
+devices. Only rank 0 writes the checkpoint, the autosave, the metrics csv and
+runs the evaluation. Data comes from a single sequence
 (``Data.Sequence``: consecutive pairs, center crops, no prefetch, as in the
 JAX runner) or from a multi-sequence mixture with train-time transforms
 (``Data.Sequences``: :class:`TrainPairDataset`). An ``Eval`` section adds
@@ -26,8 +36,10 @@ writes ``{out stem}.done`` and removes the state.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import math
+import os
 import time
 from pathlib import Path
 
@@ -176,14 +188,32 @@ def main(argv=None) -> None:
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args(argv)
 
-    from ..models.flowformer import load_flax_checkpoint
-    from ..models.flowformer.weights import load_train_state, save_params, save_train_state
-    from ..utils.config import load_config
+    import torch.distributed as dist
+
+    from ..parallel.mesh import init_distributed
     from ..utils.device import resolve_device
-    from ..utils.logging import Logger
-    from .step import create_optimizer, make_train_step, set_matmul_precision
 
     device = resolve_device(args.device)
+    init_distributed(None, int(os.environ.get("WORLD_SIZE", 1)), int(os.environ.get("RANK", 0)), device=device)
+    try:
+        train(args, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def train(args, device: torch.device) -> None:
+    """The training loop of :func:`main`'s arguments, in this process's
+    place of the process group (if any)."""
+    from ..models.flowformer import load_flax_checkpoint
+    from ..models.flowformer.weights import load_train_state, save_params, save_train_state
+    from ..parallel.mesh import world
+    from ..utils.config import load_config
+    from ..utils.logging import Logger
+    from .step import create_optimizer, make_sharded_train_step, make_train_step, set_matmul_precision
+
+    rank, n_proc = world()
+    is_main = rank == 0
     cfg, _ = load_config(Path(args.config))
     tcfg = train_config(cfg, args.steps, args.mode, args.tail_weight)
     seed0 = int(getattr(cfg.Train, "seed", 0))
@@ -191,6 +221,9 @@ def main(argv=None) -> None:
     set_matmul_precision(model)
     opt = create_optimizer(model, tcfg)
     batch_size = int(args.batch or cfg.Train.batch_size)
+    if batch_size % n_proc:
+        batch_size = max(n_proc, (batch_size // n_proc) * n_proc)
+        Logger.warning(f"batch_size rounded to {batch_size} for {n_proc} processes")
     h = int(args.height or cfg.Train.image_height)
     w = int(args.width or cfg.Train.image_width)
 
@@ -205,21 +238,31 @@ def main(argv=None) -> None:
     elif args.restore:
         load_flax_checkpoint(model, args.restore)
         Logger.info(f"warm-started params from {args.restore}")
-    step_fn = make_train_step(model, opt, tcfg, device)
+    if n_proc > 1:
+        step_fn = make_sharded_train_step(model, opt, tcfg, device)
+    else:
+        step_fn = make_train_step(model, opt, tcfg, device)
     batches = make_batches(cfg, batch_size, h, w, seed0 + start_step)   # a fresh stream on resume
 
-    pairs = eval_pairs(cfg, h, w)
+    pairs = eval_pairs(cfg, h, w) if is_main else []
     eval_fn = make_eval_fn(model, tcfg.max_flow) if pairs else None
     eval_freq = int(getattr(cfg.Eval, "freq", 1000)) if pairs else 0
     if pairs:
         Logger.info(f"eval-during-training: {len(pairs)} pairs every {eval_freq} steps")
 
-    out_path.parent.mkdir(parents=True, exist_ok=True)
     autosave = int(getattr(cfg.Train, "autosave_freq", 5000))
     metrics_path = out_path.with_name(out_path.stem + "_metrics.csv")
-    with open(metrics_path, "a", newline="") as metrics_file:
-        metrics_csv = csv.writer(metrics_file)
-        if metrics_file.tell() == 0:
+    if is_main:
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+
+    def save(step_i: int) -> None:
+        if is_main:
+            save_params(out_path, model)
+            save_train_state(state_path, model, opt, step_i)
+
+    with open(metrics_path, "a", newline="") if is_main else contextlib.nullcontext() as metrics_file:
+        metrics_csv = csv.writer(metrics_file) if is_main else None
+        if is_main and metrics_file.tell() == 0:
             metrics_csv.writerow(["step", "split", "loss", "epe", "px1", "px3", "nll"])
 
         def run_eval(step_i: int) -> None:
@@ -232,15 +275,15 @@ def main(argv=None) -> None:
             metrics_csv.writerow([step_i, "eval", "", agg["epe"], agg["px1"], agg["px3"], agg["nll"]])
             metrics_file.flush()
 
-        Logger.info(f"Training steps {start_step}..{tcfg.num_steps}, batch {batch_size} on {device}")
+        Logger.info(f"Training steps {start_step}..{tcfg.num_steps}, batch {batch_size} on {device}"
+                    + (f" x {n_proc} processes" if n_proc > 1 else ""))
         t0 = time.time()
         try:
             for i, batch in enumerate(batches, start=start_step):
                 if i >= tcfg.num_steps:
                     break
                 if args.max_session_steps and i - start_step >= args.max_session_steps:
-                    save_params(out_path, model)
-                    save_train_state(state_path, model, opt, i)
+                    save(i)
                     Logger.info(f"session step budget ({args.max_session_steps}) reached @ step "
                                 f"{i}/{tcfg.num_steps}; autosaved — re-invoke to continue")
                     return
@@ -249,18 +292,20 @@ def main(argv=None) -> None:
                     loss = float(aux["loss"])
                     rate = (i + 1 - start_step) / (time.time() - t0)
                     Logger.info(f"step {i + 1}/{tcfg.num_steps} loss={loss:.4f} ({rate:.2f} it/s)")
-                    metrics_csv.writerow([i + 1, "train", loss, "", "", "", ""])
-                    metrics_file.flush()
+                    if is_main:
+                        metrics_csv.writerow([i + 1, "train", loss, "", "", "", ""])
+                        metrics_file.flush()
                 if eval_freq and (i + 1) % eval_freq == 0:
                     run_eval(i + 1)
                 if (i + 1) % autosave == 0:
-                    save_params(out_path, model)
-                    save_train_state(state_path, model, opt, i + 1)
+                    save(i + 1)
                     Logger.info(f"autosaved -> {out_path} (+ full state @ step {i + 1})")
         finally:
             batches.close()   # stops the prefetch thread
         if not (eval_freq and tcfg.num_steps % eval_freq == 0):
             run_eval(tcfg.num_steps)   # final eval, unless the loop just ran one
+    if not is_main:
+        return
     save_params(out_path, model)
     # The success marker; the resume state goes once it exists, so a rerun
     # cannot silently skip training.

@@ -12,8 +12,13 @@ and the clipping norm over the trainable parameters only. In ``cov`` mode
 nothing upstream of the covariance branch then needs a gradient, so the cost
 perceiver takes the fused latent-attention kernel.
 
-The step runs on one device; the JAX package's data-parallel step over a
-mesh has no counterpart here yet.
+:func:`make_train_step` runs on one device. :func:`make_sharded_train_step`
+is the data-parallel step, one process a device: each process takes its rows
+of the global batch, its loss is its share of the global batch's loss (see
+``loss.py``), the gradients of the trainable parameters are summed with one
+``all_reduce``, and every process clips by the global norm and applies the
+same update. That is the step on the global batch, as the JAX package's
+step jitted over a mesh computes it, not an average of per-process means.
 """
 
 from __future__ import annotations
@@ -23,8 +28,10 @@ from typing import Callable
 
 import torch
 
+import torch.distributed as dist
+
 from ..data.datasets.train import upcast_batch
-from .loss import sequence_loss
+from .loss import GlobalBatch, sequence_loss
 
 COV_BRANCH_MARKERS = ("cov_gru", "cov_head", "cov_mask")
 
@@ -153,9 +160,10 @@ def set_matmul_precision(model: torch.nn.Module) -> None:
         torch.backends.cudnn.allow_tf32 = False
 
 
-def make_loss_fn(model: torch.nn.Module, cfg: TrainConfig):
+def make_loss_fn(model: torch.nn.Module, cfg: TrainConfig, global_batch: GlobalBatch | None = None):
     """``loss_fn(batch) -> (loss, metrics)`` on a batch already on the model's
-    device and upcast: one forward and the mode's sequence loss."""
+    device and upcast: one forward and the mode's sequence loss (this
+    process's share of it with ``global_batch``)."""
 
     def loss_fn(batch):
         out = model(batch["img1"], batch["img2"])
@@ -164,7 +172,7 @@ def make_loss_fn(model: torch.nn.Module, cfg: TrainConfig):
         cov_var = torch.exp(2.0 * torch.clamp(out["cov_predictions"], -8.0, 8.0))
         return sequence_loss(out["flow_predictions"], cov_var, batch["gt_flow"], batch.get("flow_mask"),
                              gamma=cfg.gamma, max_flow=cfg.max_flow, training_mode=cfg.training_mode,
-                             tail_weight=cfg.tail_weight)
+                             tail_weight=cfg.tail_weight, batch=global_batch)
 
     return loss_fn
 
@@ -182,5 +190,39 @@ def make_train_step(model: torch.nn.Module, opt: Optimizer, cfg: TrainConfig, de
         loss.backward()
         opt.step()
         return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}
+
+    return step
+
+
+def make_sharded_train_step(model: torch.nn.Module, opt: Optimizer, cfg: TrainConfig,
+                            device: torch.device | str, group=None):
+    """Data-parallel :func:`make_train_step` over the processes of ``group``
+    (the default group when None), each holding the same model and optimizer
+    state. ``step(batch) -> aux`` takes the GLOBAL batch (host arrays, its
+    size a multiple of the group's), keeps this rank's contiguous rows, and
+    returns the global loss and metrics; every rank ends the step with the
+    same parameters."""
+    global_batch = GlobalBatch(group)
+    rank, size = dist.get_rank(group), global_batch.size
+    loss_fn = make_loss_fn(model, cfg, global_batch)
+
+    def step(batch) -> dict:
+        rows = batch["img1"].shape[0]
+        if rows % size:
+            raise ValueError(f"global batch of {rows} does not split over {size} processes")
+        k = rows // size
+        local = {key: v[rank * k:(rank + 1) * k] for key, v in batch.items()}
+        loss, metrics = loss_fn(upcast_batch(local, device))
+        loss.backward()
+        for p in opt.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in opt.params]
+        flat = torch._utils._flatten_dense_tensors(grads)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        for g, summed in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
+            g.copy_(summed)
+        opt.step()
+        return {"loss": global_batch.sum(loss.detach()), **{k: v.detach() for k, v in metrics.items()}}
 
     return step

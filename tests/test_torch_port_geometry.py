@@ -81,3 +81,55 @@ def test_gaussian_kernels_match_jax(rng):
     ref = jgauss.gaussian_full_kernels(jnp.asarray(cov), 31)
     _close(ours, ref)
     np.testing.assert_allclose(ours.sum(dim=(-1, -2)).numpy(), 1.0, atol=1e-12)
+
+
+def test_matrix_forms_and_relative_match_jax():
+    """se3.matrix / from_matrix / quat_from_matrix / relative: each of
+    Shepperd's four branches is reached (rotations near 0 and near pi about
+    x, y and z), the same closed forms to 1e-9."""
+    rng = np.random.default_rng(5)
+    p = _poses(rng, 16)
+    flips = Rotation.from_rotvec(np.array([[3.1, 0.0, 0.0], [0.0, 3.1, 0.0], [0.0, 0.0, 3.1], [0.0, 0.0, 0.0]]))
+    p[:4, 3:] = flips.as_quat()
+    _close(tse3.matrix(torch.from_numpy(p)), jse3.matrix(jnp.asarray(p)))
+    m = np.asarray(jse3.matrix(jnp.asarray(p)))
+    _close(tse3.quat_from_matrix(torch.from_numpy(m[:, :3, :3])), jse3.quat_from_matrix(jnp.asarray(m[:, :3, :3])))
+    _close(tse3.from_matrix(torch.from_numpy(m)), jse3.from_matrix(jnp.asarray(m)))
+    a, b = _poses(rng, 8), _poses(rng, 8)
+    _close(tse3.relative(torch.from_numpy(a), torch.from_numpy(b)), jse3.relative(jnp.asarray(a), jnp.asarray(b)))
+
+
+def test_mahalanobis_and_intrinsics_match_jax():
+    rng = np.random.default_rng(6)
+    x, mu = rng.normal(size=(20, 3)), rng.normal(size=(20, 3))
+    a = rng.normal(size=(20, 3, 3))
+    sigma = a @ a.transpose(0, 2, 1) + 0.5 * np.eye(3)
+    _close(tgauss.mahalanobis(torch.from_numpy(x), torch.from_numpy(mu), torch.from_numpy(sigma)),
+           jgauss.mahalanobis(jnp.asarray(x), jnp.asarray(mu), jnp.asarray(sigma)))
+    inv = np.linalg.inv(sigma)
+    _close(tgauss.mahalanobis_inv(torch.from_numpy(x), torch.from_numpy(mu), torch.from_numpy(inv)),
+           jgauss.mahalanobis_inv(jnp.asarray(x), jnp.asarray(mu), jnp.asarray(inv)))
+    np.testing.assert_array_equal(tcam.intrinsics(320.0, 310.0, 160.0, 120.0).numpy(),
+                                  np.asarray(jcam.intrinsics(320.0, 310.0, 160.0, 120.0)))
+
+
+def test_min_pool_and_score_topk_match_jax():
+    """ops.select.min_pool2d and masked_score_topk: the same pool, and the
+    same top-K positions and validity (distinct scores, fewer masked
+    positions than K so the tail is invalid)."""
+    from macvo_tpu.ops import select as jselect
+    from macvo_tpu_torch.ops import select
+
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(12, 17)).astype(np.float32)
+    np.testing.assert_array_equal(select.min_pool2d(torch.from_numpy(x), 5).numpy(),
+                                  np.asarray(jselect.min_pool2d(jnp.asarray(x), 5)))
+    score = x.copy()
+    score[3, 4] = np.nan
+    mask = rng.random((12, 17)) < 0.1
+    k = int(mask.sum()) + 3
+    uv, valid = select.masked_score_topk(torch.from_numpy(score), torch.from_numpy(mask), k)
+    juv, jvalid = jselect.masked_score_topk(jnp.asarray(score), jnp.asarray(mask), k)
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
+    np.testing.assert_array_equal(uv.numpy()[valid.numpy()], np.asarray(juv)[np.asarray(jvalid)])
+    assert valid.sum() == int((mask & ~np.isnan(score)).sum())

@@ -31,6 +31,25 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 1e-4), (torch.bfloat16, 1e-2, 1.6e-2)])
+def test_latent_attn_kernel_matches_plain_at_the_batched_frontend_shape(cuda_device, dtype, atol, rtol):
+    """N = 51,200 pixels, T = 100: the batched frontend's one forward for four
+    640x640 sequences (4 x 2 pairs x 6,400 pixels at 1/8), against the plain
+    version at the tolerances of the test above."""
+    n, t = 4 * 2 * 6400, 100
+    args = [torch.from_numpy(a).to(cuda_device) for a in _inputs(n, t, seed=11)]
+    args[0] = args[0].to(dtype)
+    folded = latent_attn.fold_weights(*args[1:])
+    before = latent_attn.latent_cross_attention.launches
+    out = latent_attn.latent_attn_folded(args[0], *folded)
+    torch.cuda.synchronize()
+    assert latent_attn.latent_cross_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == (n, 8, 128)
+    ref = latent_attn.latent_cross_attention_torch(*args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,t", [(12800, 100), (37, 1), (5, 333), (3, 512), (1001, 100), (131, 17),
                                  (4606, 78), (9212, 78), (5640, 96)])
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 1e-4), (torch.bfloat16, 1e-2, 1.6e-2)])
