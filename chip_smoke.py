@@ -23,7 +23,8 @@ Phases, each announced by a flushed, timestamped JSON line:
               correlation at the five shapes of a 640x640 PWC forward and an
               odd one; its backward kernel (both gradients in one launch) at
               the five shapes of a trainer batch (4x320x448) and of a 640x640
-              forward, a second run bit-identical to the first.
+              forward, a second run bit-identical to the first, with its
+              registers and shared memory as ptxas reported them.
 4. network  - FlowFormerCov (fp32, shipped checkpoint, 12 steps) on a 64x96
               crop of a real pair, and the three TartanVO networks (PWC and
               stereo at 128x192, pose net at 112x160): the card against the CPU.
@@ -1272,7 +1273,9 @@ def phase_correlation_bwd(device, shape_sets: dict, timed: bool) -> dict:
     (both gradients, atol = rtol = 1e-5: sums over the 81 displacements in
     another order), and a second run bit-identical to the first. The record
     sums ms, plain ms and bound over the shapes of the first set (a trainer
-    step's five calls); the other sets are in the emitted lines."""
+    step's five calls); the other sets, and each shape's tile and channel
+    groups, are in the emitted lines; on the card it adds the kernel's ptxas
+    report and shared memory a block."""
     import torch
 
     from macvo_tpu_torch.ops import correlation
@@ -1297,6 +1300,9 @@ def phase_correlation_bwd(device, shape_sets: dict, timed: bool) -> dict:
                    "bit_identical_rerun": same}
             rec["bound_ms"], rec["bound_by"] = correlation_bwd_bound_ms(*shape)
             if timed:
+                rec["tile_cols"] = correlation.bwd_tile_width(w)
+                rec["groups"] = correlation.bwd_channel_groups(
+                    *shape, torch.cuda.get_device_properties(device).multi_processor_count)
                 rec["ms"] = cuda_time_ms(lambda: correlation.local_correlation_backward(f1, f2, g), 50)
                 rec["device_ms"] = graph_time_ms(lambda: correlation.local_correlation_backward(f1, f2, g), 50)
                 rec["plain_ms"] = cuda_time_ms(lambda: correlation.local_correlation_bwd_torch(f1, f2, g), 10)
@@ -1319,8 +1325,20 @@ def phase_correlation_bwd(device, shape_sets: dict, timed: bool) -> dict:
         emit("kernel", "sum", kernel="local_correlation_backward", set=set_name, **total)
         sums[set_name] = total
     first = next(iter(shape_sets))
-    return {"local_correlation_backward": {**sums[first], "shapes": first,
-                                           "other_sets": {k: v for k, v in sums.items() if k != first}}}
+    rec = {**sums[first], "shapes": first, "other_sets": {k: v for k, v in sums.items() if k != first}}
+    if device.type == "cuda":    # the kernel's registers and spills as ptxas reported them, its shared memory
+        import ctypes
+
+        from macvo_tpu_torch.ops._build import build
+
+        lib = build("correlation_bwd")
+        rec["ptxas"] = lib.ptxas.splitlines()
+        shared = lib.lib.correlation_bwd_shared_bytes
+        shared.argtypes, shared.restype = [ctypes.c_int], ctypes.c_int
+        rec["dynamic_smem_bytes"] = {"32-column tile": shared(32), "8-column tile (W <= 24)": shared(8)}
+        emit("kernel", "ptxas", kernel="local_correlation_backward", ptxas=rec["ptxas"],
+             dynamic_smem_bytes=rec["dynamic_smem_bytes"])
+    return {"local_correlation_backward": rec}
 
 
 class Counted:
@@ -2607,6 +2625,9 @@ def main() -> int:
         if "other_sets" in rec:
             kernels[-1]["shapes"] = rec["shapes"]
             kernels[-1]["other_shape_sets"] = rec["other_sets"]
+        if "ptxas" in rec:
+            kernels[-1]["ptxas"] = rec["ptxas"]
+            kernels[-1]["dynamic_smem_bytes"] = rec["dynamic_smem_bytes"]
         if name == "latent_cross_attention[fp32]":
             kernels[-1]["batched_frontend_shape"] = {k: batch_kernel.get(k) for k in (
                 "shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_share",

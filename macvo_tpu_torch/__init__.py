@@ -7,8 +7,10 @@ nothing of JAX or of ``macvo_tpu``: the jax-free modules it needs
 kept here as copies.
 
 Entry points run on ``device="cuda"`` unless the caller passes
-``device="cpu"``; asking for CUDA on a machine without it raises. The one
-hand-written kernel of the main path, the fused latent cross-attention
-(``ops/latent_attn.py``, source in ``csrc/``), builds with ``nvcc`` on first
-use into ``macvo_tpu_torch/_build/``.
+``device="cpu"``; asking for CUDA on a machine without it raises. The
+package has three hand-written CUDA kernels, sources in ``csrc/``: the fused
+latent cross-attention of MAC-VO's frontend (``ops/latent_attn.py``), and
+the local correlation of the TartanVO nets and its backward
+(``ops/correlation.py``). Each builds with ``nvcc`` on first use into
+``macvo_tpu_torch/_build/``.
 """

@@ -77,6 +77,7 @@ constexpr int COPIES = (CH_ELEMS + NT - 1) / NT;  // 4 copies a thread a channel
 constexpr int OUT_ELEMS = ND * K * TH * TW;     // 3456 partial sums a block
 constexpr int MAX_CLUSTER = 8;
 constexpr int BLOCKS_PER_SM = 4;                // below this many blocks an SM, split the channels
+constexpr int MAX_DEVICES = 64;
 static_assert(OUT_ELEMS <= 2 * STAGE, "the partial sums reuse the ring");
 static_assert(CH_ELEMS % 4 == 0 && F2_COLS % 4 == 0, "16-byte aligned shared rows");
 
@@ -230,32 +231,40 @@ extern "C" int correlation_cluster_size(int B, int C, int H, int W, int sms) {
   return ks;
 }
 
-// f1, f2: (B, C, H, W) fp32 contiguous; out: (B, (2r+1)^2, H, W) fp32 contiguous, on the
-// current device. Returns the launch's cudaError_t (cudaErrorInvalidValue for an
-// unsupported radius or size).
+// f1, f2: (B, C, H, W) fp32 contiguous; out: (B, (2r+1)^2, H, W) fp32 contiguous, on CUDA
+// device `device`, `stream` one of its streams. The launcher makes `device` current for the
+// launch and restores the caller's device (the wrapper needs no device guard). Returns the
+// launch's cudaError_t (cudaErrorInvalidValue for an unsupported radius or size).
 extern "C" int correlation_launch(const float* f1, const float* f2, float* out, int B, int C, int H, int W,
-                                  int radius, void* stream) {
+                                  int radius, int device, void* stream) {
   const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
   if (radius != R || B < 1 || C < 1 || H < 1 || W < 1 || B > 65535 / DY_GROUPS || tiles_y > 65535 ||
       tiles_x > 0x7fffffff / MAX_CLUSTER)
     return cudaErrorInvalidValue;
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int cluster = correlation_cluster_size(B, C, H, W, sms);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles_x * cluster, tiles_y, B * DY_GROUPS);
-  cfg.blockDim = dim3(RUNS, TH, ND);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, correlation_kernel, f1, f2, out, C, H, W);
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  int prev = device;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    const int cluster = correlation_cluster_size(B, C, H, W, sms);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(tiles_x * cluster, tiles_y, B * DY_GROUPS);
+    cfg.blockDim = dim3(RUNS, TH, ND);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, correlation_kernel, f1, f2, out, C, H, W);
+    if (err == cudaSuccess) err = cudaGetLastError();
+  }
+  if (prev != device) cudaSetDevice(prev);
+  return static_cast<int>(err);
 }

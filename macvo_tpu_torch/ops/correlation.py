@@ -87,10 +87,19 @@ def bwd_channel_groups(b: int, c: int, h: int, w: int, sms: int) -> int:
     return fn(b, c, h, w, sms)
 
 
+def bwd_tile_width(w: int) -> int:
+    """The columns a backward block covers for a map ``w`` wide: 32, or 8 where
+    the map is at most 24 wide (builds the kernel)."""
+    fn = build("correlation_bwd").lib.correlation_bwd_tile_width
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(w)
+
+
 @functools.cache
 def _kernel():
     fn = build("correlation").lib.correlation_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -98,9 +107,17 @@ def _kernel():
 @functools.cache
 def _bwd_kernel():
     fn = build("correlation_bwd").lib.correlation_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _raw_stream():
+    """The current stream of a device as an int (``torch._C._cuda_getCurrentRawStream``),
+    without building a ``torch.cuda.Stream`` each call; looked up at the first
+    launch (a CPU build of torch has no such function)."""
+    return torch._C._cuda_getCurrentRawStream
 
 
 def _check(f1: torch.Tensor, f2: torch.Tensor, radius: int) -> None:
@@ -117,15 +134,15 @@ def _check(f1: torch.Tensor, f2: torch.Tensor, radius: int) -> None:
         raise ValueError("local_correlation kernel needs contiguous NCHW inputs")
 
 
+# The launchers take the device index and make it current for the launch themselves,
+# so the wrappers need no ``torch.cuda.device`` guard.
 def _launch(f1: torch.Tensor, f2: torch.Tensor, radius: int) -> torch.Tensor:
     _check(f1, f2, radius)
+    index = f1.get_device()
     b, c, h, w = f1.shape
     k = 2 * radius + 1
-    out = torch.empty((b, k * k, h, w), dtype=torch.float32, device=f1.device)
-    fn = _kernel()
-    with torch.cuda.device(f1.device):
-        err = fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, c, h, w, radius,
-                 torch.cuda.current_stream(f1.device).cuda_stream)
+    out = f1.new_empty((b, k * k, h, w))
+    err = _kernel()(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, c, h, w, radius, index, _raw_stream()(index))
     if err != 0:
         raise RuntimeError(f"correlation kernel launch failed: cudaError {err}")
     local_correlation.launches += 1
@@ -136,11 +153,12 @@ def local_correlation_backward(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tens
                                radius: int = 4) -> tuple[torch.Tensor, torch.Tensor]:
     """(grad_f1, grad_f2): the backward kernel on CUDA tensors (one launch for
     both), :func:`local_correlation_bwd_torch` on CPU tensors."""
-    if f1.device.type == "cpu":
+    if f1.is_cpu:
         return local_correlation_bwd_torch(f1, f2, g, radius)
-    if f1.device.type != "cuda":
+    if not f1.is_cuda:
         raise ValueError(f"local_correlation_backward: unsupported device {f1.device}")
     _check(f1, f2, radius)
+    index = f1.get_device()
     b, c, h, w = f1.shape
     k = 2 * radius + 1
     if g.dtype != torch.float32 or tuple(g.shape) != (b, k * k, h, w) or g.device != f1.device:
@@ -148,10 +166,8 @@ def local_correlation_backward(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tens
                          f"{f1.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
     g = g.contiguous()
     grad_f1, grad_f2 = torch.empty_like(f1), torch.empty_like(f2)
-    fn = _bwd_kernel()
-    with torch.cuda.device(f1.device):
-        err = fn(f1.data_ptr(), f2.data_ptr(), g.data_ptr(), grad_f1.data_ptr(), grad_f2.data_ptr(),
-                 b, c, h, w, radius, torch.cuda.current_stream(f1.device).cuda_stream)
+    err = _bwd_kernel()(f1.data_ptr(), f2.data_ptr(), g.data_ptr(), grad_f1.data_ptr(), grad_f2.data_ptr(),
+                        b, c, h, w, radius, index, _raw_stream()(index))
     if err != 0:
         raise RuntimeError(f"correlation backward kernel launch failed: cudaError {err}")
     local_correlation_backward.launches += 1
@@ -183,9 +199,9 @@ def local_correlation(f1: torch.Tensor, f2: torch.Tensor, radius: int = 4) -> to
     """The kernel on CUDA tensors (through :class:`LocalCorrelationFunction`
     where a gradient is wanted), :func:`local_correlation_torch` on CPU tensors
     (NCHW; see the module doc)."""
-    if f1.device.type == "cpu":
+    if f1.is_cpu:
         return local_correlation_torch(f1, f2, radius)
-    if f1.device.type != "cuda":
+    if not f1.is_cuda:
         raise ValueError(f"local_correlation: unsupported device {f1.device}")
     if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
         return LocalCorrelationFunction.apply(f1, f2, radius)

@@ -310,14 +310,65 @@ def test_correlation_double_backward_on_the_card_raises(cuda_device):
         ga.sum().backward()
 
 
+# Shapes off every multiple the backward kernel works in (4-pixel runs, 32x4 and 8x4 tiles,
+# chunks of 8 channels): W not a multiple of the run and W under one run, H under the tile, C
+# not a multiple of the chunk and C under one chunk, channel splits with a short last group,
+# and both tiles with and without 16-byte copies (W a multiple of 4 or not; 24 and 25 wide on
+# either side of the narrow tile's limit).
+CORR_BWD_TILING = [(2, 16, 12, 37), (1, 8, 9, 3), (3, 16, 2, 40), (2, 3, 3, 33), (1, 12, 5, 37),
+                   (1, 20, 9, 33), (1, 200, 6, 10), (4, 1, 1, 1), (2, 9, 6, 20), (1, 20, 5, 7),
+                   (2, 11, 10, 14), (1, 3, 7, 24), (1, 5, 7, 25)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,groups", [((4, 32, 80, 112), 2), ((4, 64, 40, 56), 7), ((4, 96, 20, 28), 12),
-                                          ((4, 128, 10, 14), 16), ((4, 196, 5, 7), 25), ((1, 32, 160, 160), 3),
-                                          ((1, 196, 10, 10), 25), ((2, 5, 7, 9), 1)])
-def test_correlation_backward_splits_the_channels_of_the_coarse_levels(cuda_device, shape, groups):
-    """The backward launcher's channel groups on a 132-SM H100: at least 4
-    blocks an SM where the channels allow it, one group a chunk of 8 at most."""
+@pytest.mark.parametrize("shape", CORR_BWD_TILING)
+def test_correlation_backward_kernel_matches_plain_off_its_tiling(cuda_device, shape):
+    """The backward kernel at shapes off its tiling: one launch, the plain
+    version's gradients (1e-5), a second run bit-identical."""
+    f1, f2, g = _bwd_inputs(shape, cuda_device, seed=sum(shape))
+    before = correlation.local_correlation_backward.launches
+    g1, g2 = correlation.local_correlation_backward(f1, f2, g)
+    torch.cuda.synchronize()
+    assert correlation.local_correlation_backward.launches == before + 1
+    r1, r2 = correlation.local_correlation_bwd_torch(f1, f2, g)
+    torch.testing.assert_close(g1, r1, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(g2, r2, atol=1e-5, rtol=1e-5)
+    h1, h2 = correlation.local_correlation_backward(f1, f2, g)
+    assert torch.equal(g1, h1) and torch.equal(g2, h2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,tile", [((4, 32, 80, 112), 1, 32), ((4, 64, 40, 56), 2, 32),
+                                               ((4, 96, 20, 28), 6, 32), ((4, 128, 10, 14), 16, 8),
+                                               ((4, 196, 5, 7), 25, 8), ((1, 32, 160, 160), 1, 32),
+                                               ((1, 196, 10, 10), 25, 8), ((2, 5, 7, 9), 1, 8)])
+def test_correlation_backward_splits_the_channels_of_the_coarse_levels(cuda_device, shape, groups, tile):
+    """The backward launcher's tile and channel groups on a 132-SM H100: 8
+    columns a block on maps at most 24 wide, else 32; enough groups for the
+    tile's resident blocks (2 wide or 8 narrow blocks an SM) where the channels
+    allow it, at most one group a chunk of 8, every group the same number of
+    whole chunks but the last, none empty."""
+    assert correlation.bwd_tile_width(shape[3]) == tile
     assert correlation.bwd_channel_groups(*shape, sms=132) == groups
+
+
+@pytest.mark.cuda
+def test_correlation_wrappers_reject_inputs_on_another_device(cuda_device):
+    """The launchers take the device index themselves: inputs split between the
+    card and the CPU still raise, before any launch."""
+    f1, f2, g = _bwd_inputs((1, 8, 9, 11), cuda_device, seed=14)
+    fwd, bwd = correlation.local_correlation.launches, correlation.local_correlation_backward.launches
+    with pytest.raises(ValueError):
+        correlation.local_correlation(f1, f2.cpu())
+    with pytest.raises(ValueError):
+        correlation.local_correlation_backward(f1, f2.cpu(), g)
+    with pytest.raises(ValueError):
+        correlation.local_correlation_backward(f1, f2, g.cpu())
+    with pytest.raises(ValueError):
+        correlation.local_correlation_backward(f1, f2, g[:, :80])
+    with pytest.raises(ValueError):
+        correlation.local_correlation_backward(f1, f2, g.double())
+    assert (correlation.local_correlation.launches, correlation.local_correlation_backward.launches) == (fwd, bwd)
 
 
 @pytest.mark.cuda
