@@ -186,7 +186,28 @@ Phases, each announced by a flushed, timestamped JSON line:
               torch_depth_quality.py and torch_match_quality.py on
               the clip with GTDepth / GTMatcher; torch_montecarlo_cov.py at its
               own --tol.
-23. kernels - one JSON line listing every ported kernel.
+23. tools   - the geometry precision guard (utils/precision.py): a clip pair's
+              keypoint and mapping pipelines and device-chained solve
+              (MACVO_Performant.yaml, the frontend's outputs computed once)
+              bit-identical inside a caller's TF32 (both APIs) and bf16 autocast
+              to the plain run, every setting read back as it was, the guard's
+              host cost in us; the PNG decoder in use (native libpng engine or
+              its cv2 fallback) and the clip's 20 images read with the engine on
+              and off: the same bytes; scripts/torch_profile_frontend.py (bf16
+              and fp32) and torch_profile_pipeline.py at 480x640 (each stage's
+              wall, device time from torch.profiler, kernels, busy share);
+              torch_flops_analyzer.py at 480x640 batch 2; torch_flow_error_analysis.py
+              at fp32 on the clip, each bucket's EPE within 1 % and pixel share
+              within 0.01 points of the JAX CPU record (scripts/flow_error_analysis.py);
+              torch_promote_checkpoint.py --dry-run on the shipped checkpoint
+              (EPE beside the TPU record 3.3079 px and the pin 4.469 px, ATE <=
+              0.05 m) and one promotion into a temporary directory (weights
+              copied, the stale calibration removed, the record stamped gpu and
+              the card; model/ and eval_real_asset.json untouched);
+              torch_diagnose_platform_gap.py stages A (two card pairs with TF32
+              off and on, one CPU pair) and B (E2E with TF32 off and on). Every
+              figure beside the card's name and power limit.
+24. kernels - one JSON line listing every ported kernel.
 
 Each learned run resets the kernels' launch counters right before it and
 reads them right after: every kernel of the path must have launched. Any
@@ -316,9 +337,9 @@ def latent_attn_bound_ms(n: int, t: int, dtype) -> tuple[float, str]:
     folded weights) over the memory rate, against the FLOPs of the folded form
     at the card's peak for the token type (bf16 tensor cores; fp32 outside
     them)."""
-    elt = dtype.itemsize
-    nbytes = n * t * 64 * elt + n * 8 * 128 * elt + (64 * 8 + 64 * 128 + 8 * 128) * 4
-    flops = n * 2 * (t * 64 * 8 + 8 * t * 64 + 8 * 64 * 128)
+    from macvo_tpu_torch.ops.latent_attn import folded_bytes, folded_flops
+
+    nbytes, flops = folded_bytes(n, t, dtype.itemsize), folded_flops(n, t)
     t_bytes = nbytes / H100["bytes_per_s"] * 1e3
     t_ops = flops / H100["flops"][str(dtype).removeprefix("torch.")] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -891,35 +912,6 @@ def phase_train(device, rehearsal: bool) -> dict:
     return launches, out
 
 
-class CroppedSequence:
-    """Center crop of every frame (CPU rehearsal at a tiny size only)."""
-
-    def __init__(self, seq, size: int) -> None:
-        self.seq, self.size = seq, size
-
-    def __len__(self):
-        return len(self.seq)
-
-    def __getitem__(self, i):
-        import dataclasses
-
-        f = self.seq[i]
-        s = f.stereo
-        h, w = s.height, s.width
-        y0, x0 = (h - self.size) // 2, (w - self.size) // 2
-
-        def crop(x):
-            return None if x is None else x[:, y0:y0 + self.size, x0:x0 + self.size].contiguous()
-
-        K = s.K.copy()
-        K[:, 0, 2] -= x0
-        K[:, 1, 2] -= y0
-        stereo = dataclasses.replace(s, K=K, imageL=crop(s.imageL), imageR=crop(s.imageR),
-                                     gt_flow=crop(s.gt_flow), flow_mask=crop(s.flow_mask),
-                                     gt_depth=crop(s.gt_depth))
-        return dataclasses.replace(f, stereo=stereo)
-
-
 def run_odometry(cfg, seq, device, phase: str, system=None, saveto: Path | None = None,
                  received: list | None = None) -> dict:
     """Run ``seq`` through the odometry ``cfg`` builds (or ``system``), each
@@ -1357,10 +1349,11 @@ def _clip_frames(device, size: int, n: int = 10) -> list:
     """The first ``n`` frames of the real clip with their ground truth, on
     ``device`` (a center crop of ``size`` in a rehearsal)."""
     from macvo_tpu_torch.data.datasets.tartanair import TartanAirV2
+    from macvo_tpu_torch.evaluation.real_asset import CenterCrop
 
     seq = TartanAirV2({"root": str(CLIP_ROOT), "compressed": True, "gtFlow": True, "gtDepth": True,
                        "gtPose": True})
-    seq = CroppedSequence(seq, size) if size else seq
+    seq = CenterCrop(seq, size) if size else seq
     return [seq[i].to(device) for i in range(n)]
 
 
@@ -1864,6 +1857,7 @@ def phase_posenet(device, size: int) -> dict:
     import numpy as np
 
     from macvo_tpu_torch.data.datasets.tartanair import TartanAirV2
+    from macvo_tpu_torch.evaluation.real_asset import CenterCrop
     from macvo_tpu_torch.modules.frontend_tartanvo import TartanMotionNet
     from macvo_tpu_torch.odometry import build_odometry
     from macvo_tpu_torch.ops import latent_attn
@@ -1921,7 +1915,7 @@ def phase_posenet(device, size: int) -> dict:
         if not isinstance(system.MotionEstimator, TartanMotionNet):
             raise AssertionError(f"posenet: the motion model is {type(system.MotionEstimator).__name__}")
         latent_attn.reset_launches()
-        odo = run_odometry(cfg, CroppedSequence(seq3, size) if size else seq3, device, "posenet", system=system)
+        odo = run_odometry(cfg, CenterCrop(seq3, size) if size else seq3, device, "posenet", system=system)
         odo["latent_attn_launches"] = _latent_launches()
         emit("posenet", "end", part="Paper_Reproduce with the trained pose net (3 frames)", **odo)
         _one_fp32_launch_a_frame("posenet (Paper_Reproduce)", odo["latent_attn_launches"], odo["frames"], on_card)
@@ -2043,6 +2037,7 @@ def phase_batch(device, size: int) -> dict:
 
     from macvo_tpu_torch.data.datasets.synthetic import SyntheticStereo
     from macvo_tpu_torch.data.datasets.tartanair import TartanAirV2
+    from macvo_tpu_torch.evaluation.real_asset import CenterCrop
     from macvo_tpu_torch.modules.frontend_network import FlowFormerCovFrontend
     from macvo_tpu_torch.odometry import MACVO
     from macvo_tpu_torch.ops import latent_attn
@@ -2060,7 +2055,7 @@ def phase_batch(device, size: int) -> dict:
     start = time.perf_counter()
     clip = TartanAirV2({"root": str(CLIP_ROOT), "compressed": True, "gtFlow": False, "gtDepth": False,
                         "gtPose": True})
-    clip = CroppedSequence(clip, size) if size else clip
+    clip = CenterCrop(clip, size) if size else clip
     forward = [clip[i] for i in range(n_frames)]
     synth = [_render(SyntheticStereo({"n_frames": n_frames, "width": hw, "height": hw, "fx": hw / 2.0,
                                       "fy": hw / 2.0, "seed": seed}), n_frames) for seed in (7, 8)]
@@ -2370,6 +2365,229 @@ def phase_calib(device, size: int) -> dict:
     return out
 
 
+# scripts/flow_error_analysis.py on the clip with model/MACVO_FrontendCov.npz in fp32 (12 decoder steps): the JAX
+# package on the CPU, `JAX_PLATFORMS=cpu python scripts/flow_error_analysis.py --data
+# configs/sequence/TartanAirv2_RealAsset.yaml --dtype fp32 --device cpu` (jax 0.9.0); each bucket's
+# [lo, hi, share %, EPE px, share of the error %]
+FLOW_ERROR_JAX_CPU = {
+    "epe_overall": 3.319737195968628, "n_px": 3686400,
+    "gt_flow_magnitude_px": [[0.0, 2.0, 3.21, 1.277, 1.23], [2.0, 8.0, 25.98, 1.457, 11.41],
+                             [8.0, 24.0, 31.46, 2.616, 24.79], [24.0, 64.0, 32.96, 4.607, 45.75],
+                             [64.0, 400.0, 6.38, 8.751, 16.82]],
+    "gt_depth_m": [[0.0, 5.0, 48.66, 3.809, 55.83], [5.0, 20.0, 3.04, 2.456, 2.25], [20.0, 100.0, 3.05, 4.289, 3.95],
+                   [100.0, 1e9, 45.25, 2.786, 37.98]],
+    "image_row_band": [[0.0, 1.0, 25.0, 2.517, 18.95], [1.0, 2.0, 25.0, 3.429, 25.82],
+                       [2.0, 3.0, 25.0, 4.214, 31.74], [3.0, 4.0, 25.0, 3.119, 23.49]]}
+FLOW_ERROR_REL, FLOW_ERROR_SHARE_PCT = 0.01, 0.01   # each EPE within 1 %; each pixel share within 0.01 points
+PROMOTE_EPE_TPU = 3.3079                           # model/MACVO_FrontendCov.eval.json (bf16, the JAX package's TPU)
+
+
+def _guarded_geometry(device, size: int) -> dict:
+    """A clip pair's keypoint and mapping pipelines and device-chained solve
+    (MACVO_Performant.yaml, the frontend's outputs computed once) run plain,
+    then inside a caller's policy (TF32 on through both APIs and a bf16
+    autocast): the same bits, and every setting read back as it was."""
+    import timeit
+
+    import torch
+
+    from macvo_tpu_torch.backend.two_frame_pgo import solve_sync_packed
+    from macvo_tpu_torch.odometry import build_odometry
+    from macvo_tpu_torch.utils import precision
+    from macvo_tpu_torch.utils.config import load_config
+
+    cfg = load_config(ROOT / "configs/experiment/macvo/MACVO_Performant.yaml")[0]
+    cfg.Odometry.frontend.args.weight = str(CKPT)
+    if size:
+        cfg.Odometry.frontend.args.decoder_depth = 2
+    odom = build_odometry(cfg, device=device)
+    f0, f1 = _clip_frames(device, size, n=2)
+    with torch.inference_mode():
+        odom.run(f0)
+        _, _, depth0 = odom.prev_keyframe
+        depth1, match01 = odom.Frontend.estimate_pair(f0.stereo, f1.stereo)
+        prev_pose = torch.as_tensor(odom.graph.frames.data["pose"][0], device=device)
+        cam, baseline = odom._calibration(f1.stereo)
+        graph = odom.Optimizer.context["graph_type"]
+
+        def geometry():
+            odom.generator.manual_seed(0)
+            packed = odom.keypoint_pipeline(f0.stereo, f1.stereo, depth0, depth1, match01, prev_pose, prev_pose)
+            mapping = odom.mapping_pipeline(f0.stereo, depth0, depth1, match01, prev_pose)
+            return packed, mapping, solve_sync_packed(packed, prev_pose, cam, baseline, graph)
+
+        plain = geometry()
+        before = precision.settings()
+        with precision.tf32_enabled(), torch.autocast(device.type, dtype=torch.bfloat16):
+            policy = {"matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+                      "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+                      "autocast": torch.is_autocast_enabled(device.type)}
+            guarded = geometry()
+            after_inside = {"matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+                            "autocast": torch.is_autocast_enabled(device.type)}
+        read_back = precision.settings() == before and after_inside == {
+            "matmul_allow_tf32": True, "autocast": True}
+    guard_us = {}
+    for state, ctx in (("policy off", contextlib.nullcontext()), ("tf32 on", precision.tf32_enabled())):
+        with ctx:
+            guard_us[state] = timeit.timeit(lambda: precision.highest().__enter__().__exit__(None, None, None),
+                                            number=2000) / 2000 * 1e6
+    names = ("keypoint_pipeline", "mapping_pipeline", "solve_sync_packed")
+    identical = {n: bool(torch.equal(a, b)) for n, a, b in zip(names, plain, guarded)}
+    return {"bit_identical": identical, "caller_policy": policy, "settings_read_back": read_back,
+            "guard_us": guard_us, "pose": [float(x) for x in guarded[2].cpu()]}
+
+
+def phase_tools(device, size: int, card: str) -> dict:
+    """The geometry precision guard, the native PNG engine and the six tools
+    ported from the JAX package's scripts, each through its ``main``:
+    the guarded geometry bit-identical under a caller's TF32 and bf16
+    autocast; the decoder in use and the clip's frames with the engine on and
+    off; both stage profilers (bf16 and fp32 frontend, the pipeline) at
+    480x640; the FLOPs analyzer at 480x640 batch 2; the flow-error buckets at
+    fp32 on the clip against the JAX CPU record; the checkpoint gate's
+    dry run on the shipped checkpoint and one promotion into a temporary
+    directory; the accuracy-gap diagnosis' stages A (two card pairs, one CPU
+    pair) and B. Every figure beside ``card`` (name, power limit). Returns
+    the latent-attention launches."""
+    import hashlib
+    import math
+    import tempfile
+
+    from macvo_tpu_torch import native
+    from macvo_tpu_torch.data.datasets.tartanair import TartanAirV2
+    from macvo_tpu_torch.ops import latent_attn
+
+    on_card = device.type == "cuda"
+    dev = ["--device", device.type]
+    launches = {"bf16": {}, "fp32": {}}
+
+    def count(name: str) -> dict:
+        got = _latent_launches()
+        for dtype, n in got.items():
+            if n:
+                launches[dtype][f"tools.{name}"] = n
+        return got
+
+    start = time.perf_counter()
+    geo = _guarded_geometry(device, size)
+    emit("tools", "check", part="precision guard", card=card, wall_s=time.perf_counter() - start, **geo)
+    if not (all(geo["bit_identical"].values()) and geo["settings_read_back"]
+            and geo["caller_policy"] == {"matmul_allow_tf32": True, "cudnn_allow_tf32": True, "autocast": True}):
+        raise AssertionError(f"tools: the guarded geometry moved under a caller's policy: {geo}")
+
+    decoder = native.decoder()
+    clip_cfg = {"root": str(CLIP_ROOT), "compressed": True, "gtFlow": False, "gtDepth": False, "gtPose": True}
+    engine = [TartanAirV2(clip_cfg)[i].stereo for i in range(10)]
+    original = native.decode_png
+    native.decode_png = lambda *args, **kwargs: None
+    try:
+        cv2_read = [TartanAirV2(clip_cfg)[i].stereo for i in range(10)]
+    finally:
+        native.decode_png = original
+    diffs = [float((a - b).abs().max()) for e, c in zip(engine, cv2_read) for a, b in
+             ((e.imageL, c.imageL), (e.imageR, c.imageR))]
+    same_bytes = all(bool(((a * 255).round() == (b * 255).round()).all()) for e, c in zip(engine, cv2_read)
+                     for a, b in ((e.imageL, c.imageL), (e.imageR, c.imageR)))
+    emit("tools", "check", part="PNG decoder", decoder=decoder, frames=10, same_bytes=same_bytes,
+         max_abs_diff=max(diffs))
+    if not same_bytes or max(diffs) > 6e-8:
+        raise AssertionError(f"tools: the {decoder} decoder and cv2 read other bytes (max diff {max(diffs)})")
+
+    hw = ["--height", "480", "--width", "640"] if not size else ["--height", "64", "--width", "96"]
+    depth = [] if not size else ["--decoder_depth", "2"]
+    small = [] if not size else depth + ["--size", str(size)]
+    reps = [] if not size else ["--reps", "1"]
+    profiles = {}
+    for dtype in ("bf16", "fp32"):
+        latent_attn.reset_launches()
+        rep = _script("torch_profile_frontend").main(hw + depth + reps + ["--dtype", dtype] + dev)
+        count(f"profile_frontend[{dtype}]")
+        profiles[f"frontend[{dtype}]"] = rep["stages"]
+        emit("tools", "check", part=f"profile_frontend {dtype}", card=card, stages=rep["stages"])
+    rep = _script("torch_profile_pipeline").main((hw if not size else ["--height", "96", "--width", "128"]) + reps
+                                                  + dev)
+    profiles["pipeline"] = rep["stages"]
+    emit("tools", "check", part="profile_pipeline", card=card, stages=rep["stages"])
+    if on_card and any(r["device_ms"] is None or not r["kernels"] for rows in profiles.values() for r in rows):
+        raise AssertionError("tools: torch.profiler saw no device activity in a stage")
+
+    latent_attn.reset_launches()
+    flops = _script("torch_flops_analyzer").main(hw + depth + dev)
+    count("flops_analyzer")
+    emit("tools", "check", part="flops_analyzer", card=card, **flops)
+    if flops["params_M"] != 17.2 or not flops["flops_G"] > 0:
+        raise AssertionError(f"tools: flops analyzer {flops}")
+
+    (ROOT / "results").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "results", prefix="chip_smoke_tools_") as tmp:
+        tmp = Path(tmp)
+        latent_attn.reset_launches()
+        with contextlib.chdir(ROOT):
+            rec = _script("torch_flow_error_analysis").main(
+                ["--data", CLIP, "--weight", str(CKPT), "--dtype", "fp32", "--out", str(tmp / "flow_error.json")]
+                + small + dev)
+        flow_launches = count("flow_error_analysis (9 pairs)")
+        worst = {"epe_rel_err": abs(rec["epe_overall"] / FLOW_ERROR_JAX_CPU["epe_overall"] - 1), "share_diff_pct": 0.0}
+        for name, rows in rec["buckets"].items() if not size else ():     # a crop fills other buckets
+            for row, ref in zip(rows, FLOW_ERROR_JAX_CPU[name], strict=True):
+                worst["epe_rel_err"] = max(worst["epe_rel_err"], abs(row["epe"] / ref[3] - 1))
+                worst["share_diff_pct"] = max(worst["share_diff_pct"], abs(row["share_pct"] - ref[2]))
+        emit("tools", "check", part="flow_error_analysis fp32", card=card, record=rec, jax_cpu=FLOW_ERROR_JAX_CPU,
+             worst=worst, bounds={"epe_rel": FLOW_ERROR_REL, "share_pct": FLOW_ERROR_SHARE_PCT},
+             launches=flow_launches)
+        if not size and (worst["epe_rel_err"] > FLOW_ERROR_REL or worst["share_diff_pct"] > FLOW_ERROR_SHARE_PCT
+                         or rec["n_px"] != FLOW_ERROR_JAX_CPU["n_px"]):
+            raise AssertionError(f"tools: flow error buckets off the JAX CPU record: {worst}")
+
+        promote = _script("torch_promote_checkpoint")
+        guarded = [CKPT, CKPT.with_suffix(".eval.json"), ROOT / "eval_real_asset.json"]
+        digest = {str(p): hashlib.sha256(p.read_bytes()).hexdigest() for p in guarded}
+        latent_attn.reset_launches()
+        start = time.perf_counter()
+        dry = promote.main(["--candidate", str(CKPT), "--dry-run"] + small + dev)
+        count("promote_checkpoint --dry-run")
+        emit("tools", "check", part="promote_checkpoint --dry-run", card=card, wall_s=time.perf_counter() - start,
+             flow_epe_px=dry["flow_epe_px"], tpu_record_px=PROMOTE_EPE_TPU, pin_px=DENSE_EPE_PIN,
+             ate_m=dry["ate_m"], ate_bound_m=LEARNED_ATE["performant"], gate_passed=dry["gate_passed"])
+        if not size and not (dry["ate_m"] <= LEARNED_ATE["performant"] and dry["flow_epe_px"] <= DENSE_EPE_PIN):
+            raise AssertionError(f"tools: the shipped checkpoint measured {dry}")
+        (tmp / "model").mkdir()
+        cand = tmp / "cand" / "MACVO_FrontendCov_v2.npz"
+        cand.parent.mkdir()
+        shutil.copyfile(CKPT, cand)
+        (tmp / "model" / "MACVO_FrontendCov.npz").write_bytes(b"an older checkpoint")
+        (tmp / "model" / "MACVO_FrontendCov.calib.json").write_text("{}")
+        latent_attn.reset_launches()
+        start = time.perf_counter()
+        promote.main(["--candidate", str(cand), "--shipped", str(tmp / "model/MACVO_FrontendCov.npz"),
+                                 "--record", str(tmp / "model/MACVO_FrontendCov.eval.json"),
+                                 "--e2e-json", str(tmp / "eval_real_asset.json")] + small + dev)
+        count("promote_checkpoint (sandboxed promotion)")
+        record = json.loads((tmp / "model/MACVO_FrontendCov.eval.json").read_text())
+        checks = {"weights_copied": (tmp / "model/MACVO_FrontendCov.npz").read_bytes() == cand.read_bytes(),
+                  "stale_calib_removed": not (tmp / "model/MACVO_FrontendCov.calib.json").exists(),
+                  "e2e_json": (tmp / "eval_real_asset.json").exists(),
+                  "shipped_files_untouched": digest == {str(p): hashlib.sha256(p.read_bytes()).hexdigest()
+                                                        for p in guarded}}
+        emit("tools", "check", part="promote_checkpoint (sandboxed)", card=card, wall_s=time.perf_counter() - start,
+             record={k: record[k] for k in ("platform", "hardware", "flow_epe_px", "ate_m")}, **checks)
+        if not all(checks.values()) or record["platform"] != ("gpu" if on_card else "cpu"):
+            raise AssertionError(f"tools: promotion {checks} {record}")
+
+        latent_attn.reset_launches()
+        start = time.perf_counter()
+        gap = _script("torch_diagnose_platform_gap").main(
+            ["--stages", "AB", "--pairs", "2", "--cpu_pairs", "1", "--out", str(tmp / "gap.json")] + small + dev)
+        count("diagnose_platform_gap (A: 2 pairs x 2 card legs; B: 2 runs)")
+        emit("tools", "check", part="diagnose_platform_gap A+B", card=card, wall_s=time.perf_counter() - start,
+             **{k: gap[k] for k in ("stageA", "stageB_e2e")})
+        legs = list(gap["stageA"]["flow"].values()) + list(gap["stageB_e2e"].values())
+        if not all(math.isfinite(v) for leg in legs for k, v in leg.items() if k in ("epe", "ATE")):
+            raise AssertionError(f"tools: gap diagnosis {gap}")
+    return {f"latent_cross_attention[{k}]": v for k, v in launches.items()}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
@@ -2385,6 +2603,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from macvo_tpu_torch.data import SequenceBase
     from macvo_tpu_torch.data.datasets.tartanair import TartanAirV2
+    from macvo_tpu_torch.evaluation.real_asset import CenterCrop
     from macvo_tpu_torch.ops import correlation, latent_attn
     from macvo_tpu_torch.ops._build import build
     from macvo_tpu_torch.utils.config import build_dynamic_config, load_config
@@ -2440,7 +2659,7 @@ def main() -> int:
     # 5. GT frontend through the whole backend
     emit("gt", "start")
     if args.size:
-        gt_seq, learned_seq = CroppedSequence(gt_seq, args.size), CroppedSequence(learned_seq, args.size)
+        gt_seq, learned_seq = CenterCrop(gt_seq, args.size), CenterCrop(learned_seq, args.size)
     gt_cfg = build_dynamic_config({"Odometry": {
         "args": {"num_point": 200, "edgewidth": 32, "match_cov_default": 0.25, "profile": False,
                  "mapping": False},
@@ -2555,7 +2774,7 @@ def main() -> int:
     seq3 = TartanAirV2({"root": str(ROOT / clip.root), "compressed": True, "gtFlow": False, "gtDepth": False,
                         "gtPose": True}).clip(0, 3)
     latent_attn.reset_launches()
-    rec = run_odometry(cfg, CroppedSequence(seq3, args.size) if args.size else seq3, device, "train")
+    rec = run_odometry(cfg, CenterCrop(seq3, args.size) if args.size else seq3, device, "train")
     rec["latent_attn_launches"] = latent_attn.latent_cross_attention.launches_by_dtype["fp32"]
     by_phase["latent_cross_attention[fp32]"]["train.odometry (trained checkpoint, 3 frames)"] = rec["latent_attn_launches"]
     emit("train", "end", part="odometry on the trained checkpoint", weight=str(trained.relative_to(ROOT)), **rec)
@@ -2611,7 +2830,14 @@ def main() -> int:
             by_phase.setdefault(name, {}).update(parts)
         emit(phase, "end", wall_s=time.perf_counter() - start)
 
-    # 23. kernels
+    # 23. the precision guard, the PNG engine and the tools ported from the JAX package's scripts
+    emit("tools", "start", card=smi)
+    start = time.perf_counter()
+    for name, parts in phase_tools(device, args.size, smi).items():
+        by_phase.setdefault(name, {}).update(parts)
+    emit("tools", "end", wall_s=time.perf_counter() - start, card=smi)
+
+    # 24. kernels
     kernels = []
     for name, rec in kernel_recs.items():
         source, replaces = KERNEL_SOURCES[name.split("[")[0]]

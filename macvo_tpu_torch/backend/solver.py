@@ -31,6 +31,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..geometry import se3
+from ..utils.precision import matmul_highest
 
 
 class TwoFrameData(NamedTuple):
@@ -123,34 +124,24 @@ def _reproj_disp_terms(pose, data: TwoFrameData):
 GRAPH_TERMS = {"icp": _icp_terms, "reproj": _reproj_terms, "disp": _reproj_disp_terms}
 
 
-def _inverse_small(m: torch.Tensor) -> torch.Tensor:
-    """Closed-form inverse of (...,2,2) or (...,3,3) matrices (adjugate / det)."""
-    if m.shape[-1] == 2:
-        a, b, c, d = m[..., 0, 0], m[..., 0, 1], m[..., 1, 0], m[..., 1, 1]
-        inv = torch.stack([torch.stack([d, -b], -1), torch.stack([-c, a], -1)], -2)
-        return inv / (a * d - b * c)[..., None, None]
-    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
-    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
-    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
-    A, B, C = e * i - f * h, -(d * i - f * g), d * h - e * g
-    det = a * A + b * B + c * C
-    adj = torch.stack([
-        torch.stack([A, -(b * i - c * h), b * f - c * e], -1),
-        torch.stack([B, a * i - c * g, -(a * f - c * d)], -1),
-        torch.stack([C, -(a * h - b * g), a * e - b * d], -1),
-    ], -2)
-    return adj / det[..., None, None]
-
-
 def _block_whiten(cov: torch.Tensor, mask: torch.Tensor, ridge: float = 1e-12) -> torch.Tensor:
-    """Per-observation inverse covariance; masked rows get zero weight."""
+    """Per-observation inverse covariance; masked rows get zero weight.
+
+    A batched LU inverse with partial pivoting, as ``jnp.linalg.inv`` in the
+    JAX solver (``inv_ex``: no check that waits on the device). The icp
+    graph's 3x3 covariances reach condition numbers near 1e5 (a landmark's
+    depth variance against its lateral ones); there a closed-form adjugate
+    over the determinant in float32 cancels into an inverse that is not
+    positive definite, and the normal matrix of the solve loses its positive
+    diagonal."""
     d = cov.shape[-1]
     eye = torch.eye(d, dtype=cov.dtype, device=cov.device)
     m = mask[:, None, None]
     safe = torch.where(m, cov, eye) + ridge * eye
-    return torch.where(m, _inverse_small(safe), torch.zeros_like(safe))
+    return torch.where(m, torch.linalg.inv_ex(safe)[0], torch.zeros_like(safe))
 
 
+@matmul_highest
 def solve_two_frame(data: TwoFrameData, graph_type: str = "icp", huber_delta: float = 0.1,
                     damping_init: float = 1e-3, damping_up: float = 4.0, damping_down: float = 0.5,
                     damping_min: float = 1e-9, damping_max: float = 1e10, diag_min: float = 1e-6,
@@ -259,5 +250,6 @@ def unpack_two_frame(packed: torch.Tensor) -> TwoFrameData:
     )
 
 
+@matmul_highest
 def solve_two_frame_packed(packed: torch.Tensor, graph_type: str = "icp") -> torch.Tensor:
     return solve_two_frame(unpack_two_frame(packed), graph_type=graph_type)

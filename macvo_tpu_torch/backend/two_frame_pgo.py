@@ -27,11 +27,13 @@ from ..geometry import camera, se3
 from ..odometry.layout import COL_KEEP, MIN_NUM_POINT, OBS_COLS
 from ..utils import timer
 from ..utils.device import resolve_device
+from ..utils.precision import matmul_highest
 from ..worldmap import VisualMap
 from .interface import IOptimizer
 from .solver import PACKED_WIDTH, TwoFrameData, intrinsics, solve_two_frame, solve_two_frame_packed
 
 
+@matmul_highest
 def solve_sync_packed(sync: torch.Tensor, anchor: torch.Tensor, cam: torch.Tensor,
                       baseline: torch.Tensor, graph_type: str) -> torch.Tensor:
     """Device-chained two-frame solve on the (K+1, 52) sync array

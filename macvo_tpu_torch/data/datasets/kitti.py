@@ -18,7 +18,7 @@ import numpy as np
 from ..frame import StereoData, StereoFrame
 from ..sequence import SequenceBase
 from .rectify import NED2EDN_MAT, matrix_to_pose7
-from .tartanair import _tensor, load_image
+from .tartanair import _tensor, load_image_cv2
 
 
 def _decompose(p_line: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -73,8 +73,8 @@ class KITTI(SequenceBase[StereoFrame]):
                 K=self.K[None],
                 baseline=np.array([self.baseline], dtype=np.float32),
                 time_ns=self.times_ns[index:index + 1],
-                imageL=_tensor(load_image(self.left_files[index])),
-                imageR=_tensor(load_image(self.right_files[index])),
+                imageL=_tensor(load_image_cv2(self.left_files[index])),
+                imageR=_tensor(load_image_cv2(self.right_files[index])),
             ),
         )
 

@@ -23,6 +23,20 @@ from ..sequence import SequenceBase
 
 
 def load_image(path: Path) -> np.ndarray:
+    """(1,H,W,3) float32 RGB in [0,1]. PNGs go through the native libpng
+    engine (``macvo_tpu_torch/native``) where it is built; anything else, or a
+    failed native decode, is read with cv2 (:func:`load_image_cv2`)."""
+    if Path(path).suffix == ".png":
+        from ... import native
+
+        decoded = native.decode_png(path)
+        if decoded is not None:
+            return decoded[None]
+    return load_image_cv2(path)
+
+
+def load_image_cv2(path: Path) -> np.ndarray:
+    """(1,H,W,3) float32 RGB in [0,1] through cv2 (x / 255)."""
     bgr = cv2.imread(str(path), cv2.IMREAD_COLOR)
     if bgr is None:
         raise FileNotFoundError(f"Unreadable image: {path}")

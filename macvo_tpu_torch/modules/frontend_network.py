@@ -42,6 +42,7 @@ from ..models.flowformer import FlowFormerConfig, FlowFormerCov, InputPadder, no
 from ..models.flowformer.weights import build_with_weights
 from ..utils import timer
 from ..utils.device import resolve_device
+from ..utils.precision import tf32_off
 from .frontend import DepthOutput, IFrontend, IMatcher, IStereoDepth, MatchOutput
 
 _DTYPES = ("fp32", "fp16", "bf16")
@@ -108,8 +109,7 @@ class _FlowFormerRunner:
         self.calib = load_cov_calib(getattr(config, "cov_calib", "auto"), str(config.weight), device)
         self.fp32 = self.cfg.encoder_dtype == "fp32" and self.cfg.decoder_dtype == "fp32"
         if self.fp32 and device.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+            tf32_off()
 
     def _decode_unpad(self, padder, feat_a, feat_b, ctx):
         out = self.model.decode(feat_a, feat_b, ctx)

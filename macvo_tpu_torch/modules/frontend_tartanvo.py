@@ -41,6 +41,7 @@ from ..models.tartanvo import (
 )
 from ..utils.device import resolve_device
 from ..utils.logging import Logger
+from ..utils.precision import tf32_off
 from .frontend import DepthOutput, IMatcher, IStereoDepth, MatchOutput
 from .motion import IMotionModel
 
@@ -74,8 +75,7 @@ def load_network(net_class, weight: str, device: torch.device) -> torch.nn.Modul
             "not meaningful as a baseline (PARITY.md row 27)")
     model = build_with_weights(net_class, str(weight))
     if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        tf32_off()
     return model.to(device).eval()
 
 

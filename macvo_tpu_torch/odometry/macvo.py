@@ -38,6 +38,7 @@ from ..modules.outlier import IObservationFilter
 from ..utils import timer
 from ..utils.device import resolve_device
 from ..utils.logging import Logger
+from ..utils.precision import matmul_highest
 from ..utils.registry import ConfigTestable
 from ..worldmap import VisualMap
 from .interface import IOdometry
@@ -175,6 +176,7 @@ class MACVO(IOdometry[StereoFrame], ConfigTestable):
         sigma[:, 2] = 0.0
         return sigma
 
+    @matmul_highest
     def keypoint_pipeline(self, stereo0: StereoData, stereo1: StereoData, depth0: DepthOutput,
                           depth1: DepthOutput, match01, prev_pose: torch.Tensor,
                           est_pose: torch.Tensor) -> torch.Tensor:
@@ -232,6 +234,7 @@ class MACVO(IOdometry[StereoFrame], ConfigTestable):
         aux[0, 7:14] = prev_pose.float()
         return torch.cat([torch.cat(cols, dim=-1), aux], dim=0)
 
+    @matmul_highest
     def mapping_pipeline(self, stereo0: StereoData, depth0: DepthOutput, depth1: DepthOutput, match01,
                          prev_pose: torch.Tensor) -> torch.Tensor:
         """Dense-mapping points, packed (M,16): valid | pos_Tw 3 | cov_Tw 9 | color 3."""

@@ -74,6 +74,18 @@ def latent_attn_folded_torch(tokens, m, wvp, c):
         return (torch.einsum("nqt,ntd->nqd", a, tok) @ wvp.float() + c.float()).to(tokens.dtype)
 
 
+def folded_flops(n: int, t: int) -> int:
+    """FLOPs of the folded form on N pixels of T tokens (2 a multiply-add):
+    the scores tok M, the weighted token sum, and its projection by Wvp."""
+    return 2 * n * (t * D_IN * N_Q + N_Q * t * D_IN + N_Q * D_IN * D_OUT)
+
+
+def folded_bytes(n: int, t: int, itemsize: int) -> int:
+    """Bytes the folded form must move: the tokens read once, the output
+    written once (both of the token type), the fp32 folded weights read once."""
+    return (n * t * D_IN + n * N_Q * D_OUT) * itemsize + (D_IN * N_Q + D_IN * D_OUT + N_Q * D_OUT) * 4
+
+
 @functools.cache
 def _kernel():
     fn = build("latent_attn").lib.latent_attn_launch

@@ -107,11 +107,11 @@ def build_model(device: torch.device, seed: int = 0):
     """VOFlowRes with seeded random weights on ``device``; TF32 off on the card."""
     from ..models.flowformer.weights import build_with_weights
     from ..models.tartanvo import VOFlowRes
+    from ..utils.precision import tf32_off
 
     model = build_with_weights(VOFlowRes, f"random:{seed}")
     if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        tf32_off()
     return model.to(device)
 
 

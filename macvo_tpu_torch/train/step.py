@@ -31,6 +31,7 @@ import torch
 import torch.distributed as dist
 
 from ..data.datasets.train import upcast_batch
+from ..utils.precision import tf32_off
 from .loss import GlobalBatch, sequence_loss
 
 COV_BRANCH_MARKERS = ("cov_gru", "cov_head", "cov_mask")
@@ -156,8 +157,7 @@ def set_matmul_precision(model: torch.nn.Module) -> None:
     fp32 master weights."""
     cfg = model.cfg
     if cfg.encoder_dtype == "fp32" and cfg.decoder_dtype == "fp32":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        tf32_off()
 
 
 def make_loss_fn(model: torch.nn.Module, cfg: TrainConfig, global_batch: GlobalBatch | None = None):

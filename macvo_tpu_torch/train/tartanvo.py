@@ -164,6 +164,7 @@ def build_model(mode: str, device: torch.device, restore: str | None = None, see
     parameters). ``flowcov`` loads ``restore`` into ``pwc`` and freezes it."""
     from ..models.flowformer.weights import build_with_weights, load_flax_checkpoint
     from ..models.tartanvo import PWCFlowNet, RAFTFlowCovNet, StereoCovNet
+    from ..utils.precision import tf32_off
 
     if restore and mode != "flowcov":
         raise ValueError("--restore warm-starts the PWC of --mode flowcov only")
@@ -174,8 +175,7 @@ def build_model(mode: str, device: torch.device, restore: str | None = None, see
             load_flax_checkpoint(model.pwc, restore)
         model.pwc.requires_grad_(False)
     if device.type == "cuda":     # fp32 as the JAX step: TF32 off for cuDNN and cuBLAS
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        tf32_off()
     model = model.to(device)
     return model, [p for p in model.parameters() if p.requires_grad]
 

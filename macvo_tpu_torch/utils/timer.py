@@ -8,7 +8,9 @@ else: the events are resolved into milliseconds only at :func:`report` /
 :func:`save_elapsed`, so timing a frame adds no synchronisation to it. On
 the CPU, where work runs as it is called, a device section is host time.
 When the timer is off (the default) no section records or synchronises
-anything. :func:`trace` wraps ``torch.profiler`` (Chrome trace format).
+anything. :func:`trace` wraps ``torch.profiler`` (Chrome trace format);
+:func:`stage_profile` gives one stage's wall and device time, as the stage
+profilers (``scripts/torch_profile_{frontend,pipeline}.py``) report them.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import statistics
 import time
 from pathlib import Path
@@ -134,6 +137,62 @@ def trace(logdir: str | Path, filename: str = "trace.json") -> Iterator[None]:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(str(Path(logdir) / filename))
+
+
+def stage_profile(fn: Callable[[], Any], device: torch.device | str, reps: int = 10, profiled: int = 3,
+                  warmup: int = 2, step_ms: float = 20.0) -> dict:
+    """One stage's cost, ``fn`` called with nothing else queued: ``wall_ms``,
+    the median of ``reps`` synced calls (between CUDA events on the card, on
+    the host clock on the CPU); on the card also ``device_ms``, one call's
+    device time (the durations of its kernels, copies and memsets summed, from
+    ``torch.profiler``), ``kernels``, that activity's count a call, and
+    ``busy`` = device_ms / wall_ms. On the CPU those three are None (no
+    device to trace).
+
+    The profiler runs in a session of its own: a step skipped, a step that
+    warms the tracer up, then ``profiled`` recorded steps, each of as many
+    calls as fill ``step_ms`` (at least one). A session of a few short calls
+    lost some or all of their kernels in a long-lived process, so a short
+    stage is averaged over many calls."""
+    on_card = torch.device(device).type == "cuda"
+    for _ in range(warmup):
+        fn()
+    walls = []
+    for _ in range(reps):
+        if on_card:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            walls.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    rec = {"wall_ms": statistics.median(walls), "device_ms": None, "kernels": None, "busy": None, "reps": reps}
+    if on_card:
+        calls = max(1, math.ceil(step_ms / max(rec["wall_ms"], 1e-3)))
+        torch.cuda.synchronize()
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        schedule = torch.profiler.schedule(wait=1, warmup=1, active=profiled)
+        with torch.profiler.profile(activities=activities, schedule=schedule) as prof:
+            for _ in range(2 + profiled):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # Kernels, copies and memsets: not the steps' own annotations, which
+        # span them on the device timeline.
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False) and not e.name.startswith("ProfilerStep")]
+        rec["profiled_calls"] = calls * profiled
+        if device:
+            rec["device_ms"] = sum(e.time_range.elapsed_us() for e in device) / 1e3 / rec["profiled_calls"]
+            rec["kernels"] = len(device) / rec["profiled_calls"]
+            rec["busy"] = rec["device_ms"] / rec["wall_ms"]
+    return rec
 
 
 def records() -> dict[str, list[float]]:

@@ -9,11 +9,11 @@ The layouts are written into ``tmp_path`` from crops of the real clip with
 ``chip_smoke.py``'s writers (VBR's here). Loaders are host numpy and cv2 on
 both sides, so frames, K, baseline, ``T_BS``, times and ground truth are
 compared bit for bit; interpolated ground truth (EuRoC, VBR) at the
-tolerance each test states. The JAX loaders that read through its
-``load_image`` (GeneralStereo, TartanAir) decode PNGs with the package's
-native libpng engine where it is built, whose x/255 differs from cv2's in
-the last bit (6e-8); here they take the package's cv2 path, which the port
-copies.
+tolerance each test states. The loaders that read through ``load_image``
+(GeneralStereo, TartanAir) decode PNGs with their package's native libpng
+engine where it is built, whose x * (1/255) differs from cv2's x / 255 in
+the last bit (6e-8); here both packages take their cv2 path
+(``tests/test_torch_port_tools.py`` holds the two engines to each other).
 """
 
 import dataclasses
@@ -89,6 +89,7 @@ def assert_sequences_equal(ours, ref, gt_atol=0.0):
 def _jax_reads_with_cv2():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr("macvo_tpu.native.decode_png", lambda *args, **kwargs: None)
+        mp.setattr("macvo_tpu_torch.native.decode_png", lambda *args, **kwargs: None)
         yield
 
 

@@ -100,7 +100,7 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu():
             if line.startswith("{\"t_s\"") and json.loads(line)["event"] == "end"}
     assert ends == {"device", "kernel", "network", "gt", "performant", "fast", "tartanvo", "synthetic", "paper",
                     "ablation", "train", "datasets", "dense", "tartanvo_cov", "train_tvo", "runner", "posenet",
-                    "experiment", "batch", "parallel", "calib"}
+                    "experiment", "batch", "parallel", "calib", "tools"}
     kernels = [json.loads(line) for line in out.stdout.splitlines() if line.startswith('{"kernels"')]
     assert len(kernels) == 1 and {k["name"] for k in kernels[0]["kernels"]} == {
         "latent_cross_attention[bf16]", "latent_cross_attention[fp32]", "local_correlation",

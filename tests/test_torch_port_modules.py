@@ -176,11 +176,10 @@ def test_solve_two_frame_matches_jax(graph_type):
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-9)
 
 
-@pytest.mark.parametrize("graph_type", ["icp", "disp"])
-def test_solve_sync_packed_matches_jax_with_poisoned_rows(graph_type):
-    """Device-chained solve on a packed (K+1, 52) float32 sync array whose
-    masked rows hold NaN/Inf: both sides give the same pose (float32 solve,
-    1e-4) and it recovers the true motion."""
+def _sync_problem():
+    """A packed (K+1, 52) float32 sync array of 32 observations of a known
+    motion, whose 16 masked rows hold NaN/Inf; with its anchor pose, camera
+    (fx, fy, cx, cy) and the motion."""
     rng = np.random.default_rng(3)
     n, cap = 32, 48
     K = np.array([[160.0, 0, 160], [0, 160.0, 120], [0, 0, 1]])
@@ -212,7 +211,15 @@ def test_solve_sync_packed_matches_jax_with_poisoned_rows(graph_type):
     perturb = jse3.exp(jnp.asarray([0.08, -0.04, 0.05, 0.02, -0.01, 0.03], jnp.float64))
     sync[cap, 0:7] = np.asarray(jse3.mul(jse3.mul(jnp.asarray(anchor, jnp.float64), jnp.asarray(motion)), perturb))
     cam = np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]], np.float32)
+    return sync, anchor, cam, motion
 
+
+@pytest.mark.parametrize("graph_type", ["icp", "disp"])
+def test_solve_sync_packed_matches_jax_with_poisoned_rows(graph_type):
+    """Device-chained solve on a packed (K+1, 52) float32 sync array whose
+    masked rows hold NaN/Inf: both sides give the same pose (float32 solve,
+    1e-4) and it recovers the true motion."""
+    sync, anchor, cam, motion = _sync_problem()
     ref = np.asarray(j_solve_sync(jnp.asarray(sync), jnp.asarray(anchor), jnp.asarray(cam),
                                   jnp.asarray(0.25, jnp.float32), graph_type))
     ours = solve_sync_packed(torch.from_numpy(sync), torch.from_numpy(anchor), torch.from_numpy(cam),

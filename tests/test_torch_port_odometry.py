@@ -16,8 +16,8 @@ import pytest
 import torch
 
 from macvo_tpu_torch.__main__ import main as run_main
-from macvo_tpu_torch.data.datasets.tartanair import TartanAirV2
 from macvo_tpu_torch.evaluation import evaluate_all
+from macvo_tpu_torch.evaluation.real_asset import real_sequence
 from macvo_tpu_torch.odometry import MACVO
 from macvo_tpu_torch.utils.config import build_dynamic_config, load_config
 
@@ -42,11 +42,6 @@ GT_CONFIG = {"Odometry": {
     "optimizer": {"type": "Local_TwoFrame_PGO", "args": {
         "graph_type": "icp", "parallel": True, "use_fp64": True, "capacity": 256}},
 }}
-
-
-def real_sequence(gt_frontend: bool):
-    return TartanAirV2({"root": str(ASSET), "compressed": True, "gtFlow": gt_frontend,
-                        "gtDepth": gt_frontend, "gtPose": True})
 
 
 class Crop:

@@ -10,6 +10,9 @@
   timestamps (``geometry/interp.py``, ``evaluation/trajectory.py``).
 * The runner writes ``config.yaml``, and ``profile: true`` writes a trace of
   frame 2 into the result directory.
+* The LM solve whitens ill-conditioned 3x3 covariances (the icp graph's) with
+  a pivoted LU inverse, as the JAX solver's ``jnp.linalg.inv``, not with a
+  float32 adjugate that cancels.
 """
 
 from pathlib import Path
@@ -283,3 +286,35 @@ def test_runner_writes_its_config_and_a_frame_2_trace(tmp_path, monkeypatch):
     trace = json.loads((out / "trace" / "frame2.json").read_text())
     assert len(trace["traceEvents"]) > 10
     assert np.load(out / "poses.npy").shape == (3, 8)
+
+
+def test_float32_solve_whitens_ill_conditioned_covariances_as_jax():
+    """Landmark covariances nearly of rank one along an oblique direction
+    (0.2 along it, 3e-6 across: condition ~7e4, as the frontend's 3D
+    covariances of far points are): the float32 solve gives the JAX float32
+    solve's pose within 1e-4, and the float64 one's. A closed-form adjugate
+    over the determinant in float32 cancelled there and moved the pose by
+    0.048; on the real clip it froze the icp solve at its initial pose."""
+    from test_torch_port_modules import _problem
+
+    from macvo_tpu.backend.solver import TwoFrameData as JData
+    from macvo_tpu.backend.solver import solve_two_frame as j_solve
+    from macvo_tpu_torch.backend.solver import TwoFrameData, solve_two_frame
+
+    fields, _ = _problem()
+    rng = np.random.default_rng(5)
+
+    def oblique(n):
+        u = np.array([1.0, -0.57, 0.82]) + rng.normal(0, 0.05, (n, 3))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        uu = u[:, :, None] * u[:, None, :]
+        return 0.1 * uu + 1.5e-6 * (np.eye(3) - uu)
+
+    fields["cov_obs_c"], fields["cov_pts_w"] = oblique(64), oblique(64)
+    f32 = {k: np.asarray(v, np.float32) if np.asarray(v).dtype != bool else np.asarray(v) for k, v in fields.items()}
+    ref32 = np.asarray(j_solve(JData(**{k: jnp.asarray(v) for k, v in f32.items()}), graph_type="icp"))
+    ref64 = np.asarray(j_solve(JData(**{k: jnp.asarray(v) for k, v in fields.items()}), graph_type="icp"))
+    ours = solve_two_frame(TwoFrameData(**{k: torch.as_tensor(v) for k, v in f32.items()}), graph_type="icp")
+    assert ours.dtype == torch.float32
+    np.testing.assert_allclose(ours.numpy(), ref32, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(ours.numpy(), ref64, atol=1e-4, rtol=0)
