@@ -24,7 +24,15 @@ Phases, each announced by a flushed, timestamped JSON line:
               odd one; its backward kernel (both gradients in one launch) at
               the five shapes of a trainer batch (4x320x448) and of a 640x640
               forward, a second run bit-identical to the first, with its
-              registers and shared memory as ptxas reported them.
+              registers and shared memory as ptxas reported them; the
+              correlation differentiated twice through both kernels
+              (``create_graph=True``) against the plain version's autograd,
+              within 1e-5 of each term's largest value, with 3 forward and 2
+              backward launches. The library yardstick of the latent attention:
+              ``nn.MultiheadAttention`` loaded with its weights plus the
+              residual add, held against the kernel's output at the kernel's
+              tolerance and timed as the kernel (``library_ms``,
+              ``library_device_ms``).
 4. network  - FlowFormerCov (fp32, shipped checkpoint, 12 steps) on a 64x96
               crop of a real pair, and the three TartanVO networks (PWC and
               stereo at 128x192, pose net at 112x160): the card against the CPU.
@@ -209,6 +217,15 @@ Phases, each announced by a flushed, timestamped JSON line:
               figure beside the card's name and power limit.
 24. kernels - one JSON line listing every ported kernel.
 
+A CPU rehearsal runs where there is no card: ``--device cpu --size 96`` runs
+the phases on a 96x96 crop of the clip (the phases that make their own data
+make it small) and exits 3 after the kernels line, printing no result. ``--phases <name> ...`` (names as
+in ``PHASES``) runs only those phases after ``device``, each building what it
+needs; the kernels line is printed only with ``kernel`` (a launch count is null
+where its path's phase did not run), and on the card too a selection prints
+no result and exits 3. Both arguments are hidden: the plain run is the one
+above.
+
 Each learned run resets the kernels' launch counters right before it and
 reads them right after: every kernel of the path must have launched. Any
 failure ends the run with a non-zero exit and without the final line, which
@@ -236,6 +253,10 @@ CLIP = "configs/sequence/TartanAirv2_RealAsset.yaml"
 GT_BOUNDS = {"ATE": 0.002, "RTE": 0.0025, "ROE": 0.045}   # tests/test_real_asset.py:33-35, tests/test_e2e.py:19-21
 LEARNED_ATE = {"performant": 0.05, "fast": 0.08, "paper": 0.05}
 ABLATIONS = ("TartanAirv2_CovKP", "TartanAirv2_CovDiag", "TartanAirv2_ScaleNorm")
+# The phases after ``device`` (and ``build`` on the card), in the order they run; ``--phases`` picks some
+PHASES = ("kernel", "network", "gt", "performant", "fast", "tartanvo", "synthetic", "paper", "ablation", "train",
+          "datasets", "dense", "tartanvo_cov", "train_tvo", "runner", "posenet", "experiment", "batch", "parallel",
+          "calib", "tools")
 # TartanVO baseline, JAX package on the CPU, 10 frames at 640x640 (README's baseline row); an accuracy record
 TARTANVO_JAX_CPU = {"ATE": 1.613477, "RTE": 0.360225, "ROE": 3.962729}
 TARTANVO_REL = 0.001
@@ -252,6 +273,7 @@ KERNEL_SOURCES = {   # kernel -> (CUDA source, the TPU kernel it replaces)
 CORR_BWD_SHAPES = {"trainer 4x320x448": [(4, 32, 80, 112), (4, 64, 40, 56), (4, 96, 20, 28), (4, 128, 10, 14),
                                          (4, 196, 5, 7)],
                    "640x640": CORR_SHAPES}
+CORR_GRAD2_SHAPES = [(4, 32, 80, 112), CORR_ODD]   # second-order check: a trainer step's largest level, an odd shape
 # The four evaluate_* of FlowFormerCovMatcher / FlowFormerCovDepth (fp32, model/MACVO_FrontendCov.npz, 12
 # decoder steps) on the 10-frame clip at 640x640: the JAX package on the CPU,
 # `JAX_PLATFORMS=cpu python scripts/jax_dense_record.py` (jax 0.9.0, 150 s)
@@ -345,10 +367,41 @@ def latent_attn_bound_ms(n: int, t: int, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def latent_attn_library(wk, bk, wv, bv, q, wp, bias, dtype):
+    """The latent-attention stage as one PyTorch call, ``nn.MultiheadAttention``
+    (one head of 128, keys and values 64-d) loaded with the stage's weights,
+    plus the residual add of ``bias`` (the output bias and the latents, one
+    (8, 128) row a query, which the module's (128,) bias cannot hold). The q
+    projection is the identity on the latents ``q``; k / v are ``wk`` / ``wv``
+    with ``bk`` / ``bv``; the output projection is ``wp``. A yardstick for the
+    kernel's time: the port does not use it."""
+    import torch
+    from torch import nn
+
+    mha = nn.MultiheadAttention(128, 1, kdim=64, vdim=64, batch_first=True)
+    with torch.no_grad():
+        mha.q_proj_weight.copy_(torch.eye(128))
+        mha.k_proj_weight.copy_(wk.T)
+        mha.v_proj_weight.copy_(wv.T)
+        mha.in_proj_bias.copy_(torch.cat([torch.zeros_like(bk), bk, bv]))
+        mha.out_proj.weight.copy_(wp.T)
+        mha.out_proj.bias.zero_()
+    mha = mha.eval().to(device=wk.device, dtype=dtype)
+    query, residual = q.to(dtype), bias.to(dtype)
+
+    def call(tokens):
+        with torch.no_grad():
+            return mha(query.expand(tokens.shape[0], -1, -1), tokens, tokens, need_weights=False)[0] + residual
+
+    return call
+
+
 def phase_kernel(device, n: int, t: int, timed: bool, dtypes=("bf16", "fp32")) -> dict:
     """latent_cross_attention kernel vs its plain version, for each of
     ``dtypes``: the entry the main path calls (weights folded beforehand) and
-    the JAX-signature wrapper (folds on every call). ``ms`` times the former."""
+    the JAX-signature wrapper (folds on every call). ``ms`` times the former.
+    The library form (:func:`latent_attn_library`) is held against the
+    kernel's output at the same tolerance and timed the same way."""
     import torch
 
     from macvo_tpu_torch.ops import latent_attn
@@ -379,16 +432,26 @@ def phase_kernel(device, n: int, t: int, timed: bool, dtypes=("bf16", "fp32")) -
                "max_abs_err_jax_signature": float(errs["jax_signature"].max()),
                "atol": atol, "rtol": rtol, "shape": [n, t, 64]}
         rec["bound_ms"], rec["bound_by"] = latent_attn_bound_ms(n, t, dtype)
+        library = latent_attn_library(wk, bk, wv, bv, q, wp, bias, dtype)
+        kernel_out = outs["folded"].float()
+        lib_err = (library(tokens).float() - kernel_out).abs()
+        lib_ok = bool((lib_err <= atol + rtol * kernel_out.abs()).all())
+        rec["library"] = "nn.MultiheadAttention(128, 1, kdim=64, vdim=64) + residual add"
+        rec["library_max_abs_diff"] = float(lib_err.max())
         if timed:
+            rec["library_ms"] = cuda_time_ms(lambda: library(tokens), 50)
+            rec["library_device_ms"] = graph_time_ms(lambda: library(tokens), 50)
             rec["ms"] = cuda_time_ms(lambda: latent_attn.latent_attn_folded(tokens, *folded), 50)
             rec["device_ms"] = graph_time_ms(lambda: latent_attn.latent_attn_folded(tokens, *folded), 50)
             rec["jax_signature_ms"] = cuda_time_ms(lambda: latent_attn.latent_cross_attention(*args), 50)
             rec["plain_ms"] = cuda_time_ms(lambda: latent_attn.latent_cross_attention_torch(*args), 10)
             rec["bound_share"] = rec["bound_ms"] / rec["ms"]
             rec["device_bound_share"] = rec["bound_ms"] / rec["device_ms"]
-        emit("kernel", "check", kernel=name, agrees=ok, **rec)
+        emit("kernel", "check", kernel=name, agrees=ok, library_agrees=lib_ok, **rec)
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain version ({rec})")
+        if not lib_ok:
+            raise AssertionError(f"{name}: the library form disagrees with the kernel ({rec})")
         results[name] = rec
     return results
 
@@ -1331,6 +1394,57 @@ def phase_correlation_bwd(device, shape_sets: dict, timed: bool) -> dict:
         emit("kernel", "ptxas", kernel="local_correlation_backward", ptxas=rec["ptxas"],
              dynamic_smem_bytes=rec["dynamic_smem_bytes"])
     return {"local_correlation_backward": rec}
+
+
+def correlation_second_order(f1, f2, g, w1, w2, fn) -> tuple:
+    """The correlation's second-order terms: the gradients for (f1, f2, g) of
+    <w1, grad_f1> + <w2, grad_f2>, where (grad_f1, grad_f2) is the gradient of
+    <g, fn(f1, f2)> taken with ``create_graph=True``."""
+    import torch
+
+    a, b, gg = (x.clone().requires_grad_() for x in (f1, f2, g))
+    g1, g2 = torch.autograd.grad(fn(a, b), (a, b), gg, create_graph=True)
+    return torch.autograd.grad((g1 * w1).sum() + (g2 * w2).sum(), (a, b, gg))
+
+
+def phase_correlation_grad2(device, shapes, timed: bool) -> dict:
+    """The correlation differentiated twice through its kernels (the public
+    entry on the card, ``LocalCorrelationFunction`` on the CPU, where the entry
+    is the plain version) against the plain version's autograd on the same
+    inputs: each of the three terms within 1e-5 of its largest value; on the
+    card 3 forward and 2 backward launches (1 + 1 for the gradient, 2 + 1 for
+    its gradient). ``ms`` / ``plain_ms``: the whole second-order computation."""
+    import torch
+
+    from macvo_tpu_torch.ops import correlation
+
+    kernel_route = (correlation.local_correlation if device.type == "cuda"
+                    else lambda a, b: correlation.LocalCorrelationFunction.apply(a, b, 4))
+    gen = torch.Generator().manual_seed(3)
+    recs = []
+    for shape in shapes:
+        b, _, h, w = shape
+        f1, f2, w1, w2 = (torch.randn(shape, generator=gen).to(device) for _ in range(4))
+        g = torch.randn((b, 81, h, w), generator=gen).to(device)
+        before = (correlation.local_correlation.launches, correlation.local_correlation_backward.launches)
+        ours = correlation_second_order(f1, f2, g, w1, w2, kernel_route)
+        launched = (correlation.local_correlation.launches - before[0],
+                    correlation.local_correlation_backward.launches - before[1])
+        ref = correlation_second_order(f1, f2, g, w1, w2, correlation.local_correlation_torch)
+        _sync(device)
+        rel = [float((o - r).abs().max()) / float(r.abs().max()) for o, r in zip(ours, ref)]
+        ok = max(rel) <= 1e-5 and (device.type != "cuda" or launched == (3, 2))
+        rec = {"shape_bchw": list(shape), "rel_err_f1_f2_g": rel, "rtol_of_max": 1e-5,
+               "launches_forward_backward": list(launched)}
+        if timed:
+            rec["ms"] = cuda_time_ms(lambda: correlation_second_order(f1, f2, g, w1, w2, kernel_route), 20)
+            rec["plain_ms"] = cuda_time_ms(
+                lambda: correlation_second_order(f1, f2, g, w1, w2, correlation.local_correlation_torch), 5)
+        emit("kernel", "check", kernel="local_correlation second order", agrees=ok, **rec)
+        if not ok:
+            raise AssertionError(f"local_correlation: second-order terms disagree with the plain version ({rec})")
+        recs.append(rec)
+    return {"max_rel_err": max(max(r["rel_err_f1_f2_g"]) for r in recs), "shapes": recs}
 
 
 class Counted:
@@ -2592,7 +2706,13 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
     parser.add_argument("--size", type=int, default=0, help=argparse.SUPPRESS)      # CPU rehearsal crop
+    parser.add_argument("--phases", nargs="+", choices=PHASES, default=PHASES, help=argparse.SUPPRESS)
     args = parser.parse_args()
+    selected = set(args.phases)
+
+    def want(phase: str) -> bool:
+        assert phase in PHASES, phase
+        return phase in selected
 
     import torch
 
@@ -2634,15 +2754,20 @@ def main() -> int:
             for b in built])
 
     # 3. kernel
-    emit("kernel", "start")
-    kernel_recs = phase_kernel(device, 12800 if on_card else 64, 100 if on_card else 4, timed=on_card)
-    batch_kernel = phase_kernel(device, BATCH_N if on_card else 256, 100 if on_card else 4, timed=on_card,
-                                dtypes=("fp32",))["latent_cross_attention[fp32]"]
-    corr_shapes = CORR_SHAPES + [CORR_ODD] if on_card else [(1, 8, 12, 16), (1, 16, 5, 7)]
-    kernel_recs.update(phase_correlation(device, corr_shapes, timed=on_card))
-    bwd_shapes = CORR_BWD_SHAPES if on_card else {"rehearsal": [(2, 8, 12, 16), (1, 16, 5, 7)]}
-    kernel_recs.update(phase_correlation_bwd(device, bwd_shapes, timed=on_card))
-    emit("kernel", "end")
+    if want("kernel"):
+        emit("kernel", "start")
+        # T = 100 tokens, the main path's, in the rehearsal too: at a few tokens the bf16 library form
+        # rounds past the kernel's tolerance (its scores in bf16 over a softmax far from uniform)
+        kernel_recs = phase_kernel(device, 12800 if on_card else 64, 100, timed=on_card)
+        batch_kernel = phase_kernel(device, BATCH_N if on_card else 256, 100, timed=on_card,
+                                    dtypes=("fp32",))["latent_cross_attention[fp32]"]
+        corr_shapes = CORR_SHAPES + [CORR_ODD] if on_card else [(1, 8, 12, 16), (1, 16, 5, 7)]
+        kernel_recs.update(phase_correlation(device, corr_shapes, timed=on_card))
+        bwd_shapes = CORR_BWD_SHAPES if on_card else {"rehearsal": [(2, 8, 12, 16), (1, 16, 5, 7)]}
+        kernel_recs.update(phase_correlation_bwd(device, bwd_shapes, timed=on_card))
+        kernel_recs["local_correlation_backward"]["second_order"] = phase_correlation_grad2(
+            device, CORR_GRAD2_SHAPES if on_card else [(2, 8, 12, 16), (1, 3, 5, 7)], timed=on_card)
+        emit("kernel", "end")
 
     clip = load_config(ROOT / CLIP)[0].Sequence.args
     gt_seq = TartanAirV2({"root": str(ROOT / clip.root), "compressed": True,
@@ -2651,48 +2776,53 @@ def main() -> int:
                                "gtFlow": False, "gtDepth": False, "gtPose": True})
 
     # 4. network: the card against the CPU on a small crop of a real pair
-    emit("network", "start")
-    phase_network(device, learned_seq[0], learned_seq[1])
-    phase_tartanvo_networks(device, learned_seq[0], learned_seq[1])
-    emit("network", "end")
-
-    # 5. GT frontend through the whole backend
-    emit("gt", "start")
+    if want("network"):
+        emit("network", "start")
+        phase_network(device, learned_seq[0], learned_seq[1])
+        phase_tartanvo_networks(device, learned_seq[0], learned_seq[1])
+        emit("network", "end")
     if args.size:
         gt_seq, learned_seq = CenterCrop(gt_seq, args.size), CenterCrop(learned_seq, args.size)
-    gt_cfg = build_dynamic_config({"Odometry": {
-        "args": {"num_point": 200, "edgewidth": 32, "match_cov_default": 0.25, "profile": False,
-                 "mapping": False},
-        "frontend": {"type": "FrontendCompose", "args": {
-            "depth": {"type": "GTDepth", "args": {}}, "match": {"type": "GTMatcher", "args": {}}}},
-        "motion": {"type": "StaticMotionModel", "args": {}},
-        "keypoint": {"type": "RandomSelector", "args": {"mask_width": 32}},
-        "mappoint": {"type": "RandomSelector", "args": {"mask_width": 32}},
-        "outlier": {"type": "FilterCompose", "args": {"filter_args": [
-            {"type": "CovarianceSanityFilter", "args": {}},
-            {"type": "SimpleDepthFilter", "args": {"min_depth": 0.05, "max_depth": "auto"}}]}},
-        "cov": {"obs": {"type": "MatchCovariance", "args": {
-            "kernel_size": 31, "match_cov_default": 0.25, "min_flow_cov": 0.25, "min_depth_cov": 0.05}}},
-        "postprocess": {"type": "MotionInterpolate", "args": {}},
-        "keyframe": {"type": "AllKeyframe", "args": {}},
-        "optimizer": {"type": "Local_TwoFrame_PGO", "args": {
-            "graph_type": "icp", "parallel": True, "use_fp64": True, "capacity": 256}},
-    }})[0]
-    rec = run_odometry(gt_cfg, gt_seq, device, "gt")
-    emit("gt", "end", bounds=GT_BOUNDS, **rec)
-    if not args.size:
-        check_bounds("gt", rec, GT_BOUNDS)
+
+    # 5. GT frontend through the whole backend
+    launches, by_phase = {}, {}     # main-path launches of each kernel; all launches by phase
+    if want("gt"):
+        emit("gt", "start")
+        gt_cfg = build_dynamic_config({"Odometry": {
+            "args": {"num_point": 200, "edgewidth": 32, "match_cov_default": 0.25, "profile": False,
+                     "mapping": False},
+            "frontend": {"type": "FrontendCompose", "args": {
+                "depth": {"type": "GTDepth", "args": {}}, "match": {"type": "GTMatcher", "args": {}}}},
+            "motion": {"type": "StaticMotionModel", "args": {}},
+            "keypoint": {"type": "RandomSelector", "args": {"mask_width": 32}},
+            "mappoint": {"type": "RandomSelector", "args": {"mask_width": 32}},
+            "outlier": {"type": "FilterCompose", "args": {"filter_args": [
+                {"type": "CovarianceSanityFilter", "args": {}},
+                {"type": "SimpleDepthFilter", "args": {"min_depth": 0.05, "max_depth": "auto"}}]}},
+            "cov": {"obs": {"type": "MatchCovariance", "args": {
+                "kernel_size": 31, "match_cov_default": 0.25, "min_flow_cov": 0.25, "min_depth_cov": 0.05}}},
+            "postprocess": {"type": "MotionInterpolate", "args": {}},
+            "keyframe": {"type": "AllKeyframe", "args": {}},
+            "optimizer": {"type": "Local_TwoFrame_PGO", "args": {
+                "graph_type": "icp", "parallel": True, "use_fp64": True, "capacity": 256}},
+        }})[0]
+        rec = run_odometry(gt_cfg, gt_seq, device, "gt")
+        emit("gt", "end", bounds=GT_BOUNDS, **rec)
+        if not args.size:
+            check_bounds("gt", rec, GT_BOUNDS)
 
     # 6./7. learned frontend, Performant (fp32) then Fast (bf16)
-    launches = {}
     for phase, cfg_file, kname in (("performant", "MACVO_Performant.yaml", "latent_cross_attention[fp32]"),
                                    ("fast", "MACVO_Fast.yaml", "latent_cross_attention[bf16]")):
+        if not want(phase):
+            continue
         emit(phase, "start")
         cfg = load_config(ROOT / "configs/experiment/macvo" / cfg_file)[0]
         cfg.Odometry.frontend.args.weight = str(ROOT / "model/MACVO_FrontendCov.npz")
         latent_attn.reset_launches()
         rec = run_odometry(cfg, learned_seq, device, phase)
         launches[kname] = latent_attn.latent_cross_attention.launches_by_dtype[kname[-5:-1]]
+        by_phase.setdefault(kname, {})[phase] = launches[kname]
         rec["latent_attn_launches"] = dict(latent_attn.latent_cross_attention.launches_by_dtype)
         emit(phase, "end", ate_bound_m=LEARNED_ATE[phase], **rec)
         if not args.size and rec["ATE_m"] > LEARNED_ATE[phase]:
@@ -2703,48 +2833,50 @@ def main() -> int:
                                  f"over {rec['frames']} frames")
 
     # 8. TartanVO baseline: PWC (5 correlation launches a pair) + stereo + pose net
-    emit("tartanvo", "start")
-    cfg = load_config(ROOT / "configs/experiment/baseline/TartanVO.yaml")[0]
-    for node, ckpt in ((cfg.Odometry.match, "flow"), (cfg.Odometry.depth, "stereo"),
-                       (cfg.Odometry.tartanvo, "posenet")):
-        node.args.weight = str(ROOT / "model" / f"TartanVO_{ckpt}.npz")
-    correlation.local_correlation.launches = 0
-    rec = run_odometry(cfg, learned_seq, device, "tartanvo")
-    launches["local_correlation"] = correlation.local_correlation.launches
-    rec["correlation_launches"] = launches["local_correlation"]
-    emit("tartanvo", "end", jax_cpu_record=TARTANVO_JAX_CPU, rel_bound=TARTANVO_REL, **rec)
-    if not args.size:
-        for key, metric in (("ATE_m", "ATE"), ("RTE_m_per_frame", "RTE"), ("ROE_deg_per_frame", "ROE")):
-            ref = TARTANVO_JAX_CPU[metric]
-            if abs(rec[key] - ref) > TARTANVO_REL * ref:
-                raise AssertionError(f"tartanvo: {metric} {rec[key]} not within {TARTANVO_REL:.0%} of {ref}")
-    if on_card and launches["local_correlation"] != 5 * (rec["frames"] - 1):
-        raise AssertionError(f"tartanvo: correlation kernel launched {launches['local_correlation']} times "
-                             f"over {rec['frames']} frames, not 5 a pair")
+    if want("tartanvo"):
+        emit("tartanvo", "start")
+        cfg = load_config(ROOT / "configs/experiment/baseline/TartanVO.yaml")[0]
+        for node, ckpt in ((cfg.Odometry.match, "flow"), (cfg.Odometry.depth, "stereo"),
+                           (cfg.Odometry.tartanvo, "posenet")):
+            node.args.weight = str(ROOT / "model" / f"TartanVO_{ckpt}.npz")
+        correlation.local_correlation.launches = 0
+        rec = run_odometry(cfg, learned_seq, device, "tartanvo")
+        launches["local_correlation"] = correlation.local_correlation.launches
+        rec["correlation_launches"] = launches["local_correlation"]
+        emit("tartanvo", "end", jax_cpu_record=TARTANVO_JAX_CPU, rel_bound=TARTANVO_REL, **rec)
+        if not args.size:
+            for key, metric in (("ATE_m", "ATE"), ("RTE_m_per_frame", "RTE"), ("ROE_deg_per_frame", "ROE")):
+                ref = TARTANVO_JAX_CPU[metric]
+                if abs(rec[key] - ref) > TARTANVO_REL * ref:
+                    raise AssertionError(f"tartanvo: {metric} {rec[key]} not within {TARTANVO_REL:.0%} of {ref}")
+        if on_card and launches["local_correlation"] != 5 * (rec["frames"] - 1):
+            raise AssertionError(f"tartanvo: correlation kernel launched {launches['local_correlation']} times "
+                                 f"over {rec['frames']} frames, not 5 a pair")
 
     # 9. the synthetic quickstart: GT frontend, no kernel on the path
-    emit("synthetic", "start")
-    cfg = load_config(ROOT / "configs/experiment/macvo/MACVO_Synthetic.yaml")[0]
-    synth_seq = SequenceBase.from_config(cfg.Data.Sequence)
-    start = time.perf_counter()
-    synth_frames = [synth_seq[i] for i in range(len(synth_seq))]     # rendered before the run, not inside it
-    render_s = time.perf_counter() - start
-    latent_attn.reset_launches()
-    correlation.local_correlation.launches = 0
-    rec = run_odometry(cfg, synth_frames, device, "synthetic")
-    rec["render_s"] = render_s
-    rec["kernel_launches"] = {"latent_cross_attention": latent_attn.latent_cross_attention.launches,
-                              "local_correlation": correlation.local_correlation.launches}
-    emit("synthetic", "end", bounds=GT_BOUNDS, note="GT frontend: no kernel on this path", **rec)
-    check_bounds("synthetic", rec, GT_BOUNDS)
-    if any(rec["kernel_launches"].values()):
-        raise AssertionError(f"synthetic: a kernel launched on a path that has none: {rec['kernel_launches']}")
+    if want("synthetic"):
+        emit("synthetic", "start")
+        cfg = load_config(ROOT / "configs/experiment/macvo/MACVO_Synthetic.yaml")[0]
+        synth_seq = SequenceBase.from_config(cfg.Data.Sequence)
+        start = time.perf_counter()
+        synth_frames = [synth_seq[i] for i in range(len(synth_seq))]     # rendered before the run, not inside it
+        render_s = time.perf_counter() - start
+        latent_attn.reset_launches()
+        correlation.local_correlation.launches = 0
+        rec = run_odometry(cfg, synth_frames, device, "synthetic")
+        rec["render_s"] = render_s
+        rec["kernel_launches"] = {"latent_cross_attention": latent_attn.latent_cross_attention.launches,
+                                  "local_correlation": correlation.local_correlation.launches}
+        emit("synthetic", "end", bounds=GT_BOUNDS, note="GT frontend: no kernel on this path", **rec)
+        check_bounds("synthetic", rec, GT_BOUNDS)
+        if any(rec["kernel_launches"].values()):
+            raise AssertionError(f"synthetic: a kernel launched on a path that has none: {rec['kernel_launches']}")
 
     # 10./11. Paper_Reproduce and three ablation configs on the real clip
-    by_phase = {"latent_cross_attention[fp32]": {"performant": launches["latent_cross_attention[fp32]"]},
-                "latent_cross_attention[bf16]": {"fast": launches["latent_cross_attention[bf16]"]}}
     runs = [("paper", "Paper_Reproduce.yaml")] + [("ablation", f"ablation/{a}.yaml") for a in ABLATIONS]
     for phase, cfg_file in runs:
+        if not want(phase):
+            continue
         variant = Path(cfg_file).stem
         emit(phase, "start", config=variant)
         cfg = load_config(ROOT / "configs/experiment/macvo" / cfg_file)[0]
@@ -2755,7 +2887,7 @@ def main() -> int:
         rec = run_odometry(cfg, learned_seq, device, phase)
         rec["latent_attn_launches"] = latent_attn.latent_cross_attention.launches_by_dtype["fp32"]
         rec["latent_attn_launches_bf16"] = latent_attn.latent_cross_attention.launches_by_dtype["bf16"]
-        by_phase["latent_cross_attention[fp32]"][f"{phase}[{variant}]"] = rec["latent_attn_launches"]
+        by_phase.setdefault("latent_cross_attention[fp32]", {})[f"{phase}[{variant}]"] = rec["latent_attn_launches"]
         emit(phase, "end", config=variant, ate_bound_m=LEARNED_ATE.get(phase), **rec)
         if not args.size and phase in LEARNED_ATE and rec["ATE_m"] > LEARNED_ATE[phase]:
             raise AssertionError(f"{phase}: ATE {rec['ATE_m']} m > {LEARNED_ATE[phase]} m")
@@ -2765,57 +2897,65 @@ def main() -> int:
                                  "not one fp32 launch a frame")
 
     # 12. training: five checks, then the odometry on the checkpoint the runner wrote
-    emit("train", "start")
-    train_launches, trained = phase_train(device, rehearsal=bool(args.size))
-    for name, parts in train_launches.items():
-        by_phase.setdefault(name, {}).update(parts)
-    cfg = load_config(ROOT / "configs/experiment/macvo/MACVO_Performant.yaml")[0]
-    cfg.Odometry.frontend.args.weight = str(trained)
-    seq3 = TartanAirV2({"root": str(ROOT / clip.root), "compressed": True, "gtFlow": False, "gtDepth": False,
-                        "gtPose": True}).clip(0, 3)
-    latent_attn.reset_launches()
-    rec = run_odometry(cfg, CenterCrop(seq3, args.size) if args.size else seq3, device, "train")
-    rec["latent_attn_launches"] = latent_attn.latent_cross_attention.launches_by_dtype["fp32"]
-    by_phase["latent_cross_attention[fp32]"]["train.odometry (trained checkpoint, 3 frames)"] = rec["latent_attn_launches"]
-    emit("train", "end", part="odometry on the trained checkpoint", weight=str(trained.relative_to(ROOT)), **rec)
-    if on_card and (rec["latent_attn_launches"] != rec["frames"] or latent_attn.latent_cross_attention.launches
-                    != rec["frames"]):
-        raise AssertionError(f"train: odometry on the trained checkpoint launched the kernel "
-                             f"{rec['latent_attn_launches']} times over {rec['frames']} frames")
-    shutil.rmtree(trained.parent)       # the 55 MB checkpoint and its run's files
+    if want("train"):
+        emit("train", "start")
+        train_launches, trained = phase_train(device, rehearsal=bool(args.size))
+        for name, parts in train_launches.items():
+            by_phase.setdefault(name, {}).update(parts)
+        cfg = load_config(ROOT / "configs/experiment/macvo/MACVO_Performant.yaml")[0]
+        cfg.Odometry.frontend.args.weight = str(trained)
+        seq3 = TartanAirV2({"root": str(ROOT / clip.root), "compressed": True, "gtFlow": False, "gtDepth": False,
+                            "gtPose": True}).clip(0, 3)
+        latent_attn.reset_launches()
+        rec = run_odometry(cfg, CenterCrop(seq3, args.size) if args.size else seq3, device, "train")
+        rec["latent_attn_launches"] = latent_attn.latent_cross_attention.launches_by_dtype["fp32"]
+        by_phase.setdefault("latent_cross_attention[fp32]", {})[
+            "train.odometry (trained checkpoint, 3 frames)"] = rec["latent_attn_launches"]
+        emit("train", "end", part="odometry on the trained checkpoint", weight=str(trained.relative_to(ROOT)), **rec)
+        if on_card and (rec["latent_attn_launches"] != rec["frames"] or latent_attn.latent_cross_attention.launches
+                        != rec["frames"]):
+            raise AssertionError(f"train: odometry on the trained checkpoint launched the kernel "
+                                 f"{rec['latent_attn_launches']} times over {rec['frames']} frames")
+        shutil.rmtree(trained.parent)       # the 55 MB checkpoint and its run's files
 
     # 13. the user's data: KITTI, GeneralStereo and EuRoC layouts of the clip through the runner's sequence
-    emit("datasets", "start")
-    start = time.perf_counter()
-    for name, parts in phase_datasets(device, args.size).items():
-        by_phase.setdefault(name, {}).update(parts)
-    emit("datasets", "end", wall_s=time.perf_counter() - start)
+    if want("datasets"):
+        emit("datasets", "start")
+        start = time.perf_counter()
+        for name, parts in phase_datasets(device, args.size).items():
+            by_phase.setdefault(name, {}).update(parts)
+        emit("datasets", "end", wall_s=time.perf_counter() - start)
 
     # 14. the dense matchers and depths through the dense evaluation, and the ApplyGT modifiers
-    emit("dense", "start")
-    start = time.perf_counter()
-    for name, parts in phase_dense(device, args.size).items():
-        by_phase.setdefault(name, {}).update(parts)
-    emit("dense", "end", wall_s=time.perf_counter() - start)
+    if want("dense"):
+        emit("dense", "start")
+        start = time.perf_counter()
+        for name, parts in phase_dense(device, args.size).items():
+            by_phase.setdefault(name, {}).update(parts)
+        emit("dense", "end", wall_s=time.perf_counter() - start)
 
     # 15. TartanVOCovMatcher (PWC + RAFT-style covariance) with seeded random weights
-    emit("tartanvo_cov", "start")
-    start = time.perf_counter()
-    for name, parts in phase_tartanvo_cov(device, args.size).items():
-        by_phase.setdefault(name, {}).update(parts)
-    emit("tartanvo_cov", "end", wall_s=time.perf_counter() - start)
+    if want("tartanvo_cov"):
+        emit("tartanvo_cov", "start")
+        start = time.perf_counter()
+        for name, parts in phase_tartanvo_cov(device, args.size).items():
+            by_phase.setdefault(name, {}).update(parts)
+        emit("tartanvo_cov", "end", wall_s=time.perf_counter() - start)
 
     # 16. the TartanVO trainer: flow, flowcov and stereo, through the correlation's backward kernel
-    emit("train_tvo", "start")
-    start = time.perf_counter()
-    tvo = phase_train_tvo(device, args.size)
-    for name, parts in tvo.items():
-        by_phase.setdefault(name, {}).update(parts)
-    launches["local_correlation_backward"] = sum(tvo["local_correlation_backward"].values())
-    emit("train_tvo", "end", wall_s=time.perf_counter() - start)
+    if want("train_tvo"):
+        emit("train_tvo", "start")
+        start = time.perf_counter()
+        tvo = phase_train_tvo(device, args.size)
+        for name, parts in tvo.items():
+            by_phase.setdefault(name, {}).update(parts)
+        launches["local_correlation_backward"] = sum(tvo["local_correlation_backward"].values())
+        emit("train_tvo", "end", wall_s=time.perf_counter() - start)
 
     # 17.-19. the runner with its tooling, the pose net's trainer, the batch experiment runner
     for phase, fn in (("runner", phase_runner), ("posenet", phase_posenet), ("experiment", phase_experiment)):
+        if not want(phase):
+            continue
         emit(phase, "start")
         start = time.perf_counter()
         for name, parts in fn(device, args.size).items():
@@ -2824,6 +2964,8 @@ def main() -> int:
 
     # 20.-22. batched odometry, the multi-process paths, the calibration and analysis scripts
     for phase, fn in (("batch", phase_batch), ("parallel", phase_parallel), ("calib", phase_calib)):
+        if not want(phase):
+            continue
         emit(phase, "start")
         start = time.perf_counter()
         for name, parts in fn(device, args.size).items():
@@ -2831,45 +2973,52 @@ def main() -> int:
         emit(phase, "end", wall_s=time.perf_counter() - start)
 
     # 23. the precision guard, the PNG engine and the tools ported from the JAX package's scripts
-    emit("tools", "start", card=smi)
-    start = time.perf_counter()
-    for name, parts in phase_tools(device, args.size, smi).items():
-        by_phase.setdefault(name, {}).update(parts)
-    emit("tools", "end", wall_s=time.perf_counter() - start, card=smi)
+    if want("tools"):
+        emit("tools", "start", card=smi)
+        start = time.perf_counter()
+        for name, parts in phase_tools(device, args.size, smi).items():
+            by_phase.setdefault(name, {}).update(parts)
+        emit("tools", "end", wall_s=time.perf_counter() - start, card=smi)
 
-    # 24. kernels
-    kernels = []
-    for name, rec in kernel_recs.items():
-        source, replaces = KERNEL_SOURCES[name.split("[")[0]]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
-            "max_abs_err": rec["max_abs_err"], "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
-            "bound_ms": rec.get("bound_ms"), "bound_by": rec.get("bound_by"), "library_ms": None,
-            "bound_share": rec.get("bound_share"), "device_ms": rec.get("device_ms"),
-            "device_bound_share": rec.get("device_bound_share"),
-        })
-        if "other_sets" in rec:
-            kernels[-1]["shapes"] = rec["shapes"]
-            kernels[-1]["other_shape_sets"] = rec["other_sets"]
-        if "ptxas" in rec:
-            kernels[-1]["ptxas"] = rec["ptxas"]
-            kernels[-1]["dynamic_smem_bytes"] = rec["dynamic_smem_bytes"]
-        if name == "latent_cross_attention[fp32]":
-            kernels[-1]["batched_frontend_shape"] = {k: batch_kernel.get(k) for k in (
-                "shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
-                "device_bound_share")}
-        if name in by_phase:
-            kernels[-1]["launches_by_phase"] = by_phase[name]
-    print(json.dumps({"kernels": kernels}), flush=True)
-    if on_card:
-        print(smi, flush=True)
-        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                                 "count": torch.cuda.device_count()}}), flush=True)
-    else:
+    # 24. kernels (launches: the count of the main path's run of this selection, null where it did not run)
+    if want("kernel"):
+        kernels = []
+        for name, rec in kernel_recs.items():
+            source, replaces = KERNEL_SOURCES[name.split("[")[0]]
+            kernels.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches.get(name),
+                "max_abs_err": rec["max_abs_err"], "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
+                "bound_ms": rec.get("bound_ms"), "bound_by": rec.get("bound_by"), "library_ms": rec.get("library_ms"),
+                "bound_share": rec.get("bound_share"), "device_ms": rec.get("device_ms"),
+                "device_bound_share": rec.get("device_bound_share"),
+            })
+            for key in ("library", "library_device_ms", "library_max_abs_diff", "second_order"):
+                if key in rec:
+                    kernels[-1][key] = rec[key]
+            if "other_sets" in rec:
+                kernels[-1]["shapes"] = rec["shapes"]
+                kernels[-1]["other_shape_sets"] = rec["other_sets"]
+            if "ptxas" in rec:
+                kernels[-1]["ptxas"] = rec["ptxas"]
+                kernels[-1]["dynamic_smem_bytes"] = rec["dynamic_smem_bytes"]
+            if name == "latent_cross_attention[fp32]":
+                kernels[-1]["batched_frontend_shape"] = {k: batch_kernel.get(k) for k in (
+                    "shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
+                    "device_bound_share", "library_ms", "library_device_ms", "library_max_abs_diff")}
+            if name in by_phase:
+                kernels[-1]["launches_by_phase"] = by_phase[name]
+        print(json.dumps({"kernels": kernels}), flush=True)
+    if not on_card:
         print("chip_smoke: CPU rehearsal finished (no result: the run is only valid on a card)", flush=True)
         return 3
+    if selected != set(PHASES):
+        print(f"chip_smoke: ran only {sorted(selected)} (no result: the run is only valid with every phase)",
+              flush=True)
+        return 3
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -14,12 +14,17 @@ counts in ``local_correlation.launches``) and runs the plain version
 
 Gradients on the card: where grad is enabled and an input requires it, the
 entry goes through :class:`LocalCorrelationFunction`, whose forward launches
-the same kernel and whose backward launches ``csrc/correlation_bwd.cu`` (both
-input gradients in one launch, counted in ``local_correlation_backward.launches``);
-:func:`local_correlation_bwd_torch` is its plain version. The JAX package
-differentiates its XLA twin instead (``macvo_tpu/ops/correlation.py:_bwd``).
-There is no fallback: a CUDA input the kernels cannot take raises (not
-float32, not contiguous, or a radius other than 4).
+the same kernel and whose backward is :class:`LocalCorrelationBackwardFunction`:
+its forward launches ``csrc/correlation_bwd.cu`` (both input gradients in one
+launch, counted in ``local_correlation_backward.launches``;
+:func:`local_correlation_bwd_torch` is its plain version). The gradient is
+itself differentiable, as the JAX package's (``macvo_tpu/ops/correlation.py:_bwd``
+is ``jax.vjp`` of its XLA twin): the correlation is bilinear, so the gradient's
+own gradient is made of the same two kernels (see
+:meth:`LocalCorrelationBackwardFunction.backward`), and every higher order
+follows through the same two Functions. Applied to CPU tensors, the Functions
+run the plain versions. There is no fallback: a CUDA input the kernels cannot
+take raises (not float32, not contiguous, or a radius other than 4).
 """
 
 from __future__ import annotations
@@ -177,22 +182,82 @@ def local_correlation_backward(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tens
 local_correlation_backward.launches = 0   # backward kernel launches
 
 
+def _forward(f1: torch.Tensor, f2: torch.Tensor, radius: int) -> torch.Tensor:
+    """The forward kernel on CUDA tensors, the plain version on CPU tensors (no graph)."""
+    return local_correlation_torch(f1, f2, radius) if f1.is_cpu else _launch(f1, f2, radius)
+
+
+def _correlate(f1: torch.Tensor, f2: torch.Tensor, radius: int) -> torch.Tensor:
+    """The correlation, through :class:`LocalCorrelationFunction` where a gradient is wanted."""
+    if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
+        return LocalCorrelationFunction.apply(f1, f2, radius)
+    return _forward(f1, f2, radius)
+
+
+def _gradient(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor, radius: int):
+    """(grad_f1, grad_f2), through :class:`LocalCorrelationBackwardFunction` where a gradient is wanted."""
+    if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad or g.requires_grad):
+        return LocalCorrelationBackwardFunction.apply(f1, f2, g, radius)
+    return local_correlation_backward(f1, f2, g, radius)
+
+
 class LocalCorrelationFunction(torch.autograd.Function):
-    """The forward kernel, differentiated by the backward kernel (CUDA tensors)."""
+    """C(f1, f2): the forward kernel, differentiated by :class:`LocalCorrelationBackwardFunction`."""
 
     @staticmethod
     def forward(ctx, f1: torch.Tensor, f2: torch.Tensor, radius: int) -> torch.Tensor:
         ctx.save_for_backward(f1, f2)
         ctx.radius = radius
-        return _launch(f1, f2, radius)
+        return _forward(f1, f2, radius)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, g: torch.Tensor):
         f1, f2 = ctx.saved_tensors
-        grad_f1, grad_f2 = local_correlation_backward(f1, f2, g, ctx.radius)
+        grad_f1, grad_f2 = _gradient(f1, f2, g, ctx.radius)
         return (grad_f1 if ctx.needs_input_grad[0] else None,
                 grad_f2 if ctx.needs_input_grad[1] else None, None)
+
+
+class LocalCorrelationBackwardFunction(torch.autograd.Function):
+    """B(f1, f2, g) = (d<g, C(f1, f2)>/df1, d<g, C(f1, f2)>/df2): the backward
+    kernel, one launch for both.
+
+    B's first part is linear in (f2, g) and its second in (f1, g), so for the
+    incoming gradients (u1, u2) of (grad_f1, grad_f2),
+    <u1, grad_f1> + <u2, grad_f2> = <g, C(u1, f2) + C(f1, u2)>, whose gradients are
+
+        for g:        C(u1, f2) + C(f1, u2)      two forward launches
+        for (f1, f2): B(u1, u2, g)               one backward launch
+
+    A term whose u is None is skipped (a zero map stands in for it in B)."""
+
+    @staticmethod
+    def forward(ctx, f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor, radius: int):
+        ctx.save_for_backward(f1, f2, g)
+        ctx.radius = radius
+        return local_correlation_backward(f1, f2, g, radius)
+
+    @staticmethod
+    def backward(ctx, u1: torch.Tensor | None, u2: torch.Tensor | None):
+        f1, f2, g = ctx.saved_tensors
+        r = ctx.radius
+        u1 = u1.contiguous() if u1 is not None else None     # the kernels take contiguous maps
+        u2 = u2.contiguous() if u2 is not None else None
+        grad_g = None
+        if ctx.needs_input_grad[2]:
+            if u1 is not None:
+                grad_g = _correlate(u1, f2, r)
+            if u2 is not None:
+                term = _correlate(f1, u2, r)
+                grad_g = term if grad_g is None else grad_g + term
+        want_f1 = ctx.needs_input_grad[0] and u2 is not None
+        want_f2 = ctx.needs_input_grad[1] and u1 is not None
+        grad_f1 = grad_f2 = None
+        if want_f1 or want_f2:
+            b1, b2 = _gradient(u1 if u1 is not None else torch.zeros_like(f1),
+                               u2 if u2 is not None else torch.zeros_like(f2), g, r)
+            grad_f1, grad_f2 = (b1 if want_f1 else None), (b2 if want_f2 else None)
+        return grad_f1, grad_f2, grad_g, None
 
 
 def local_correlation(f1: torch.Tensor, f2: torch.Tensor, radius: int = 4) -> torch.Tensor:
@@ -203,9 +268,7 @@ def local_correlation(f1: torch.Tensor, f2: torch.Tensor, radius: int = 4) -> to
         return local_correlation_torch(f1, f2, radius)
     if not f1.is_cuda:
         raise ValueError(f"local_correlation: unsupported device {f1.device}")
-    if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
-        return LocalCorrelationFunction.apply(f1, f2, radius)
-    return _launch(f1, f2, radius)
+    return _correlate(f1, f2, radius)
 
 
 local_correlation.launches = 0   # forward kernel launches

@@ -1,15 +1,17 @@
 """Ablation study of the PyTorch/CUDA port (counterpart of scripts/run_ablations.py).
 
-Runs every ablation config of ``configs/experiment/macvo/ablation/`` (or the
-configs given with ``--odom``; with ``--fast`` also ``MACVO_Fast.yaml``) over
-one sequence config, in one process, on the card unless ``--device cpu``, and
-writes the table ordered by ATE to ``chiprun_out/ablation_table.md`` and
-``.json`` (ATE / RTE / ROE rmse, lost-track frames, steady time per frame,
-latent-attention launches, peak device memory, and the card's name and power
-limit). ``--seeds N`` runs each config with the keypoint generator seeded
+Runs every ablation config of ``--ablation_dir`` (default
+``configs/experiment/macvo/ablation/``; or the configs given with ``--odom``;
+with ``--fast`` also ``MACVO_Fast.yaml``), in file-name order, over one
+sequence config (its first ``--frames`` frames where given), in one process,
+on the card unless ``--device cpu``, and writes the table ordered by ATE to
+``chiprun_out/ablation_table.md`` and ``.json`` (ATE / RTE / ROE rmse,
+lost-track frames, steady time per frame, latent-attention launches, peak
+device memory, and the card's name and power limit). ``--seeds N`` runs each config with the keypoint generator seeded
 0..N-1 and tables the median and range of each metric:
 
     python scripts/torch_run_ablations.py --data configs/sequence/Synthetic_Holdout.yaml [--fast]
+        [--ablation_dir <dir of configs>] [--frames N]
     python scripts/torch_run_ablations.py --data configs/sequence/TartanAirv2_RealAsset.yaml \
         --odom configs/experiment/macvo/Paper_Reproduce.yaml --seeds 8 --out chiprun_out/seeds
 
@@ -107,8 +109,10 @@ def table(rows: list[dict]) -> list[str]:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--data", required=True, help="sequence config yaml")
-    ap.add_argument("--odom", nargs="+", default=None,
-                    help="odometry configs to run (default: every config of configs/experiment/macvo/ablation)")
+    ap.add_argument("--ablation_dir", default=str(ROOT / "configs/experiment/macvo/ablation"),
+                    help="directory whose *.yaml configs run, in file-name order (unless --odom)")
+    ap.add_argument("--odom", nargs="+", default=None, help="odometry configs to run instead of --ablation_dir's")
+    ap.add_argument("--frames", type=int, default=None, help="clip the sequence to its first N frames")
     ap.add_argument("--fast", action="store_true", help="also run configs/experiment/macvo/MACVO_Fast.yaml")
     ap.add_argument("--seeds", type=int, default=1, help="runs of each config, keypoint generator seeded 0..N-1")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -122,11 +126,14 @@ def main() -> None:
     from macvo_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    configs = ([Path(p) for p in args.odom] if args.odom
-               else sorted((ROOT / "configs/experiment/macvo/ablation").glob("*.yaml")))
+    configs = [Path(p) for p in args.odom] if args.odom else sorted(Path(args.ablation_dir).glob("*.yaml"))
+    if not configs:
+        raise SystemExit(f"no ablation configs under {args.ablation_dir}")
     if args.fast:
         configs.append(ROOT / "configs/experiment/macvo/MACVO_Fast.yaml")
     seq = SequenceBase.from_config(load_config(Path(args.data))[0].Sequence)
+    if args.frames:
+        seq.clip(0, args.frames)
     t0 = time.perf_counter()
     frames = [seq[i] for i in range(len(seq))]
     data_s = time.perf_counter() - t0
@@ -148,9 +155,9 @@ def main() -> None:
 
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
-    meta = {"data": args.data, "frames": len(frames), "data_s": data_s, "seeds": args.seeds, "device": str(device),
-            "card": card, "torch": torch.__version__, "weight": "model/MACVO_FrontendCov.npz",
-            "script": "scripts/torch_run_ablations.py"}
+    meta = {"data": args.data, "configs": [str(p) for p in configs], "frames": len(frames), "data_s": data_s,
+            "seeds": args.seeds, "device": str(device), "card": card, "torch": torch.__version__,
+            "weight": "model/MACVO_FrontendCov.npz", "script": "scripts/torch_run_ablations.py"}
     out.with_suffix(".json").write_text(json.dumps({"meta": meta, "rows": rows}, indent=1) + "\n")
     lines = [f"<!-- {json.dumps(meta)} -->"] + table(rows)
     out.with_suffix(".md").write_text("\n".join(lines) + "\n")

@@ -3,7 +3,6 @@ default with a clear error without a card, and a chip smoke script that
 fails off the card instead of printing a result."""
 
 import ast
-import json
 import os
 import shutil
 import subprocess
@@ -83,28 +82,6 @@ def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
     out = subprocess.run([sys.executable, "chip_smoke.py", "--device", "cpu"], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
-    assert '"ok": true' not in out.stdout
-
-
-def test_chip_smoke_rehearses_every_phase_on_the_cpu():
-    """The script's CPU rehearsal (hidden ``--device cpu --size``): every phase
-    runs, on a 96x96 crop of the real clip (the synthetic one at its own
-    320x240), the kernels line is printed, and the run still
-    exits non-zero without the final ``ok`` line."""
-    env = _env()
-    env["OMP_NUM_THREADS"] = "2"
-    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--device", "cpu", "--size", "96"],
-                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    assert out.returncode == 3, out.stderr[-2000:]
-    ends = {json.loads(line)["phase"] for line in out.stdout.splitlines()
-            if line.startswith("{\"t_s\"") and json.loads(line)["event"] == "end"}
-    assert ends == {"device", "kernel", "network", "gt", "performant", "fast", "tartanvo", "synthetic", "paper",
-                    "ablation", "train", "datasets", "dense", "tartanvo_cov", "train_tvo", "runner", "posenet",
-                    "experiment", "batch", "parallel", "calib", "tools"}
-    kernels = [json.loads(line) for line in out.stdout.splitlines() if line.startswith('{"kernels"')]
-    assert len(kernels) == 1 and {k["name"] for k in kernels[0]["kernels"]} == {
-        "latent_cross_attention[bf16]", "latent_cross_attention[fp32]", "local_correlation",
-        "local_correlation_backward"}
     assert '"ok": true' not in out.stdout
 
 

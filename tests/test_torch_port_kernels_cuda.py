@@ -299,15 +299,38 @@ def test_correlation_autograd_on_the_card_launches_both_kernels(cuda_device):
     torch.testing.assert_close(b.grad, rb.grad, atol=1e-5, rtol=1e-5)
 
 
+def _second_and_third_order(f1, f2, g, w1, w2, fn):
+    """The gradients for (f1, f2, g) of <w1, grad_f1> + <w2, grad_f2> (grad_f1,
+    grad_f2: the gradient of <g, fn(f1, f2)>), and the gradients of the sum of
+    their squares (the third order)."""
+    a, b, gg = (x.clone().requires_grad_() for x in (f1, f2, g))
+    g1, g2 = torch.autograd.grad(fn(a, b), (a, b), gg, create_graph=True)
+    second = torch.autograd.grad((g1 * w1).sum() + (g2 * w2).sum(), (a, b, gg), create_graph=True)
+    third = torch.autograd.grad(sum((x * x).sum() for x in second), (a, b, gg))
+    return [x.detach() for x in second], third
+
+
 @pytest.mark.cuda
-def test_correlation_double_backward_on_the_card_raises(cuda_device):
-    """The backward kernel's gradients carry no graph: a second-order use
-    (``create_graph=True``) raises instead of dropping its terms."""
-    f1, f2, g = _bwd_inputs((1, 8, 9, 11), cuda_device, seed=13)
-    a, b = f1.clone().requires_grad_(), f2.clone().requires_grad_()
-    ga, _ = torch.autograd.grad((correlation.local_correlation(a, b) * g).sum(), (a, b), create_graph=True)
-    with pytest.raises(RuntimeError):
-        ga.sum().backward()
+@pytest.mark.parametrize("shape", [(1, 8, 9, 11), (2, 16, 12, 37)])
+def test_correlation_double_backward_on_the_card_equals_the_plain_twin(cuda_device, shape):
+    """``create_graph=True`` through the kernel route: the second-order terms
+    (3 forward and 2 backward launches: 1 + 1 for the gradient, 2 + 1 for its
+    gradient) and the third-order ones equal the plain version's autograd on
+    the same inputs, each within 1e-5 of its largest value."""
+    f1, f2, g = _bwd_inputs(shape, cuda_device, seed=13)
+    w1, w2 = _corr_inputs(shape, cuda_device, seed=15)
+    before = (correlation.local_correlation.launches, correlation.local_correlation_backward.launches)
+    a, b, gg = (x.clone().requires_grad_() for x in (f1, f2, g))
+    g1, g2 = torch.autograd.grad(correlation.local_correlation(a, b), (a, b), gg, create_graph=True)
+    torch.autograd.grad((g1 * w1).sum() + (g2 * w2).sum(), (a, b, gg))
+    torch.cuda.synchronize()
+    assert (correlation.local_correlation.launches - before[0],
+            correlation.local_correlation_backward.launches - before[1]) == (3, 2)
+    ours = _second_and_third_order(f1, f2, g, w1, w2, correlation.local_correlation)
+    ref = _second_and_third_order(f1, f2, g, w1, w2, correlation.local_correlation_torch)
+    for order_ours, order_ref in zip(ours, ref):
+        for o, r in zip(order_ours, order_ref):
+            assert float((o - r).abs().max()) <= 1e-5 * float(r.abs().max())
 
 
 # Shapes off every multiple the backward kernel works in (4-pixel runs, 32x4 and 8x4 tiles,
