@@ -215,7 +215,49 @@ Phases, each announced by a flushed, timestamped JSON line:
               torch_diagnose_platform_gap.py stages A (two card pairs with TF32
               off and on, one CPU pair) and B (E2E with TF32 off and on). Every
               figure beside the card's name and power limit.
-24. kernels - one JSON line listing every ported kernel.
+24. chain   - the shipped checkpoint's training chain, in the order of
+              scripts/train_chain_r5.sh / train_ext_v4.sh, with a temporary
+              directory under results/ as the working directory (``assets``
+              linked into it), so the recipes' ./data/randomized and ./assets
+              paths resolve unedited; each cut recipe is a copy written there,
+              its cuts printed as ``reduced`` (steps, worlds, frames, eval
+              frequency; widths never), and each part prints a ``check`` line:
+              worlds: scripts/torch_gen_randomized.py, three commands at once,
+                writes seq_1000 and seq_1001 (flow), seq_1020 (holdout) and
+                seq_1049 (the fit's holdout) at 640x480, 4 frames each; render
+                seconds.
+              flow: ``python -m macvo_tpu_torch.train.run`` through its ``main``
+                on FlowFormerCov_randomized.yaml (320x448, batch 4, bf16, 12
+                decoder steps, stereo_prob 0.35) from the shipped checkpoint,
+                4 steps and its final eval on the clip's 18 pairs: the npz in
+                the JAX layout, ``.done``, the metrics rows, the covariance
+                branch untouched; no latent-attention launch in a step, one bf16
+                launch an eval pair.
+              cov: FlowFormerCov_randomized_cov.yaml on seq_1020 from the flow
+                output, 4 steps with --tail_weight 3.0: every parameter outside
+                the covariance branch bit-identical to the flow output, one bf16
+                launch a step.
+              fit and calibration: torch_fit_cov_temperature.py on seq_1049
+                writes <candidate>.calib.json (tau2 finite and positive; one
+                bf16 launch a pair); torch_cov_calibration.py on the clip with
+                that file (one fp32 launch a pair); coverage raw and
+                recalibrated.
+              promotion gate: torch_promote_checkpoint.py, the candidate against
+                a temporary copy of the shipped weights, record, E2E JSON, curve
+                and a calibration file, on the full clip: exit code 2, every
+                copied file byte-identical; then a self-promotion of that copy
+                with --force, --candidate relative to the working directory and
+                --shipped absolute: it finishes, the weights, curve and
+                calibration untouched, both records rewritten for the card.
+              multi: FlowFormerCov_multi.yaml (160x160, batch 8, bf16, three
+                SyntheticStereo scenes with AddImageNoise), 4 steps from its
+                init with Eval.freq cut to 2: two eval rows, no launch in a
+                step, one bf16 launch an eval pair.
+              Each training run reports ms a step (synced; first and steady),
+              data ms a batch (``TrainPairDataset.draw`` in the runner's
+              prefetch thread) and the runner's wait for it, peak memory,
+              launches a step and the loss rows.
+25. kernels - one JSON line listing every ported kernel.
 
 A CPU rehearsal runs where there is no card: ``--device cpu --size 96`` runs
 the phases on a 96x96 crop of the clip (the phases that make their own data
@@ -256,7 +298,7 @@ ABLATIONS = ("TartanAirv2_CovKP", "TartanAirv2_CovDiag", "TartanAirv2_ScaleNorm"
 # The phases after ``device`` (and ``build`` on the card), in the order they run; ``--phases`` picks some
 PHASES = ("kernel", "network", "gt", "performant", "fast", "tartanvo", "synthetic", "paper", "ablation", "train",
           "datasets", "dense", "tartanvo_cov", "train_tvo", "runner", "posenet", "experiment", "batch", "parallel",
-          "calib", "tools")
+          "calib", "tools", "chain")
 # TartanVO baseline, JAX package on the CPU, 10 frames at 640x640 (README's baseline row); an accuracy record
 TARTANVO_JAX_CPU = {"ATE": 1.613477, "RTE": 0.360225, "ROE": 3.962729}
 TARTANVO_REL = 0.001
@@ -2702,6 +2744,359 @@ def phase_tools(device, size: int, card: str) -> dict:
     return {f"latent_cross_attention[{k}]": v for k, v in launches.items()}
 
 
+# The chain phase: the recipes of scripts/train_chain_r5.sh / train_ext_v4.sh, their worlds written first
+CHAIN_WORLDS = {"flow": (1000, 1001), "holdout": 1020, "fit": 1049}   # the fit's permanent holdout, seq_1049
+CHAIN_FRAMES = 4          # a world's frames (torch_gen_randomized.py writes 24 by default): 2 pairs with flow
+CHAIN_STEPS = 4
+CHAIN_LIMIT_S = 200   # the phase's share of the script's 1,200 s
+MULTI_FRAMES = 6          # a SyntheticStereo sequence's frames in FlowFormerCov_multi.yaml (48 as shipped)
+MULTI_EVAL_FREQ = 2
+
+
+def _cut_recipe(name: str, out: Path, rehearsal: bool, worlds=None, frames=None, eval_freq=None) -> tuple:
+    """A copy of ``configs/train/<name>`` at ``out`` with its training worlds
+    cut to ``worlds`` (seq numbers), its sequences' frames to ``frames`` and
+    its eval frequency to ``eval_freq``; in a CPU rehearsal also 2 decoder
+    steps and 2 eval frames. Returns (path, the cuts as {key: [shipped, cut]})."""
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "configs/train" / name).read_text())
+    reduced = {}
+    seqs = cfg["Data"]["Sequences"]
+    if worlds is not None:
+        kept = [s for s in seqs if int(Path(s["args"]["root"]).name.split("_")[1]) in worlds]
+        reduced["Data.Sequences (worlds)"] = [len(seqs), len(kept)]
+        cfg["Data"]["Sequences"] = seqs = kept
+    if frames is not None:
+        reduced["frames a sequence"] = [seqs[0]["args"]["n_frames"], frames]
+        for s in seqs:
+            s["args"]["n_frames"] = frames
+    if eval_freq is not None:
+        reduced["Eval.freq"] = [cfg["Eval"]["freq"], eval_freq]
+        cfg["Eval"]["freq"] = eval_freq
+    if rehearsal:
+        reduced["Model.decoder_depth"] = [cfg["Model"]["decoder_depth"], 2]
+        reduced["Eval.max_frames"] = [cfg["Eval"]["max_frames"], 2]
+        cfg["Model"]["decoder_depth"], cfg["Eval"]["max_frames"] = 2, 2
+    out.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return out, reduced
+
+
+@contextlib.contextmanager
+def _timed_training(device):
+    """Time ``train.run.main`` from outside as it runs: each step synced (ms,
+    loss, latent-attention launches by token type: the counts' change over
+    the step), each batch's host assembly (``TrainPairDataset.draw``, in the
+    runner's prefetch thread), the runner's wait for each batch, and the
+    number of eval pairs."""
+    from macvo_tpu_torch.data.datasets.train import TrainPairDataset
+    from macvo_tpu_torch.ops import latent_attn
+    from macvo_tpu_torch.train import run
+    from macvo_tpu_torch.train import step as train_step
+
+    counts = latent_attn.latent_cross_attention.launches_by_dtype
+    rec = {"step_ms": [], "losses": [], "launches_per_step": [], "draw_ms": [], "wait_ms": [], "eval_pairs": 0}
+    make_step, make_batches, eval_pairs, draw = (train_step.make_train_step, run.make_batches, run.eval_pairs,
+                                                 TrainPairDataset.draw)
+
+    def timed_make_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def timed(batch):
+            _sync(device)
+            before = dict(counts)
+            start = time.perf_counter()
+            aux = step(batch)
+            loss = float(aux["loss"])          # syncs
+            _sync(device)
+            rec["step_ms"].append(round((time.perf_counter() - start) * 1e3, 3))
+            rec["launches_per_step"].append({k: counts[k] - before[k] for k in counts})
+            rec["losses"].append(loss)
+            return aux
+        return timed
+
+    def timed_batches(*args, **kwargs):
+        batches = make_batches(*args, **kwargs)
+        try:
+            while True:
+                start = time.perf_counter()
+                batch = next(batches)
+                rec["wait_ms"].append(round((time.perf_counter() - start) * 1e3, 3))
+                yield batch
+        finally:
+            batches.close()
+
+    def timed_draw(self, *args, **kwargs):
+        start = time.perf_counter()
+        batch = draw(self, *args, **kwargs)
+        rec["draw_ms"].append(round((time.perf_counter() - start) * 1e3, 3))
+        return batch
+
+    def counted_eval_pairs(*args, **kwargs):
+        pairs = eval_pairs(*args, **kwargs)
+        rec["eval_pairs"] = len(pairs)
+        return pairs
+
+    train_step.make_train_step, run.make_batches, run.eval_pairs = timed_make_step, timed_batches, counted_eval_pairs
+    TrainPairDataset.draw = timed_draw
+    try:
+        yield rec
+    finally:
+        train_step.make_train_step, run.make_batches, run.eval_pairs = make_step, make_batches, eval_pairs
+        TrainPairDataset.draw = draw
+
+
+def _train_run(part: str, argv: list, device, rehearsal: bool) -> dict:
+    """``python -m macvo_tpu_torch.train.run`` through its ``main`` with
+    ``argv`` (crops and batch cut in a CPU rehearsal), timed: ms a step
+    (first and steady), data ms a batch, peak memory, launches, metrics rows."""
+    import numpy as np
+
+    from macvo_tpu_torch.ops import latent_attn
+    from macvo_tpu_torch.train import run
+
+    if rehearsal:
+        argv = argv + ["--height", "64", "--width", "96", "--batch", "2"]
+    out = Path(argv[argv.index("--out") + 1])
+    _peak_reset(device)
+    latent_attn.reset_launches()
+    start = time.perf_counter()
+    with _timed_training(device) as rec:
+        run.main(argv + ["--log_freq", "1", "--device", device.type])
+    _sync(device)
+    wall_s = time.perf_counter() - start
+    total = _latent_launches()
+    rows = out.with_name(out.stem + "_metrics.csv").read_text().strip().splitlines()
+    rec.update(argv=argv, wall_s=wall_s, peak_memory_bytes=_peak(device), first_step_ms=rec["step_ms"][0],
+               steady_step_ms=float(np.median(rec["step_ms"][1:])), data_ms_per_batch=float(np.mean(rec["draw_ms"])),
+               wait_ms_per_step=float(np.mean(rec["wait_ms"])), launches=total,
+               eval_launches={k: total[k] - sum(s[k] for s in rec["launches_per_step"]) for k in total},
+               metrics_rows=rows, done=out.with_name(out.stem + ".done").exists())
+    if not (rec["done"] and out.exists() and all(np.isfinite(rec["losses"]))):
+        raise AssertionError(f"chain {part}: {rec}")
+    return rec
+
+
+def _npz_layout_and_moved(new: Path, ref: Path) -> tuple[bool, set, set]:
+    """(``new`` has ``ref``'s keys, shapes and float32, the keys whose arrays
+    moved outside / inside the covariance branch)."""
+    import numpy as np
+
+    from macvo_tpu_torch.train.step import is_cov_param
+
+    with np.load(ref) as a, np.load(new) as b:
+        layout = set(a.files) == set(b.files) and all(
+            a[k].shape == b[k].shape and b[k].dtype == np.float32 for k in a.files)
+        moved = {k for k in a.files if k in b.files and not np.array_equal(a[k], b[k])}
+    cov = {k for k in moved if is_cov_param(k.replace("/", "."))}
+    return layout, moved - cov, cov
+
+
+def phase_chain(device, size: int, card: str) -> dict:
+    """The shipped checkpoint's training chain (module docstring, phase 24),
+    in a temporary directory under results/ that is the working directory,
+    so the recipes' ./data/randomized and ./assets paths resolve unedited.
+    Returns the latent-attention launches of each part by kernel name."""
+    import hashlib
+    import math
+    import tempfile
+
+    import numpy as np
+
+    from macvo_tpu_torch.ops import latent_attn
+
+    on_card = device.type == "cuda"
+    rehearsal = bool(size)
+    dev = ["--device", device.type]
+    steps = CHAIN_STEPS if not rehearsal else 2
+    out = {"latent_cross_attention[bf16]": {}, "latent_cross_attention[fp32]": {}}
+
+    def record(name: str, launches: dict) -> None:
+        for dt in ("bf16", "fp32"):
+            if launches[dt]:
+                out[f"latent_cross_attention[{dt}]"][f"chain.{name}"] = launches[dt]
+
+    (ROOT / "results").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "results", prefix="chip_smoke_chain_") as tmp_dir, \
+            contextlib.chdir(tmp_dir):
+        tmp = Path(tmp_dir)
+        (tmp / "assets").symlink_to(ROOT / "assets")
+        worlds = tmp / "data" / "randomized"
+
+        # 1. worlds: scripts/torch_gen_randomized.py as a user runs it, three commands at once
+        frames, (w, h) = (CHAIN_FRAMES, (640, 480)) if not rehearsal else (3, (128, 96))
+        jobs = [(CHAIN_WORLDS["flow"][0], len(CHAIN_WORLDS["flow"])), (CHAIN_WORLDS["holdout"], 1),
+                (CHAIN_WORLDS["fit"], 1)]
+        start = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "scripts/torch_gen_randomized.py"), "--out",
+                                   "data/randomized", "--n_seqs", str(n), "--n_frames", str(frames), "--width", str(w),
+                                   "--height", str(h), "--seed0", str(seed0), "--workers", str(n)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for seed0, n in jobs]
+        try:
+            results = [(p.communicate(timeout=600), p.returncode) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        render_s = time.perf_counter() - start
+        written = sorted(p.name for p in worlds.iterdir())
+        want = sorted(f"seq_{s}" for s in (*CHAIN_WORLDS["flow"], CHAIN_WORLDS["holdout"], CHAIN_WORLDS["fit"]))
+        emit("chain", "check", part="worlds", render_s=render_s, worlds=written, frames=frames, hw=[h, w],
+             processes=[len(jobs), sum(n for _, n in jobs)], reduced={"frames a world": [24, frames]},
+             note="RandomizedStereo, supersample 2, rendered on the host before any training")
+        if written != want or any(rc for _, rc in results):
+            raise AssertionError(f"chain worlds: wrote {written}, exit codes {[rc for _, rc in results]}: "
+                                 + " ".join(err[-500:] for (_, err), _ in results))
+
+        # 2. flow phase: FlowFormerCov_randomized.yaml from the shipped checkpoint
+        flow_yaml, reduced = _cut_recipe("FlowFormerCov_randomized.yaml", tmp / "flow.yaml", rehearsal,
+                                         worlds=CHAIN_WORLDS["flow"])
+        flow_out = tmp / "model" / "FlowFormerCov_rand_flow.npz"
+        rec = _train_run("flow", ["--config", str(flow_yaml), "--steps", str(steps), "--restore", str(CKPT),
+                                  "--out", "model/FlowFormerCov_rand_flow.npz"], device, rehearsal)
+        layout, moved, moved_cov = _npz_layout_and_moved(flow_out, CKPT)
+        rec.update(reduced={"Train.num_steps": [12000, steps], **reduced, "frames a world": [24, frames]},
+                   jax_layout=layout, moved_keys=len(moved), cov_branch_moved=len(moved_cov),
+                   dtype="bf16", decoder_depth=2 if rehearsal else 12, stereo_prob=0.35)
+        record(f"flow ({steps} steps + {rec['eval_pairs']} eval pairs)", rec["launches"])
+        emit("chain", "check", part="flow", **rec)
+        if not layout or not moved or moved_cov or len(rec["metrics_rows"]) != steps + 2:
+            raise AssertionError(f"chain flow: layout {layout}, moved {len(moved)}, cov branch moved {moved_cov}, "
+                                 f"rows {rec['metrics_rows']}")
+        if on_card and (any(sum(s.values()) for s in rec["launches_per_step"])
+                        or rec["eval_launches"] != {"fp32": 0, "bf16": rec["eval_pairs"]}):
+            raise AssertionError(f"chain flow: launches {rec['launches_per_step']} in the steps, "
+                                 f"{rec['eval_launches']} for {rec['eval_pairs']} eval pairs")
+
+        # 3. cov phase: FlowFormerCov_randomized_cov.yaml on the holdout world, from the flow phase's output
+        cov_yaml, reduced = _cut_recipe("FlowFormerCov_randomized_cov.yaml", tmp / "cov.yaml", rehearsal,
+                                        worlds=(CHAIN_WORLDS["holdout"],))
+        cand = tmp / "model" / "MACVO_FrontendCov_chain.npz"
+        rec = _train_run("cov", ["--config", str(cov_yaml), "--steps", str(steps), "--tail_weight", "3.0",
+                                 "--restore", "model/FlowFormerCov_rand_flow.npz",
+                                 "--out", "model/MACVO_FrontendCov_chain.npz"], device, rehearsal)
+        layout, moved, moved_cov = _npz_layout_and_moved(cand, flow_out)
+        rec.update(reduced={"Train.num_steps": [4000, steps], **reduced, "frames a world": [24, frames]},
+                   jax_layout=layout, outside_cov_branch_bit_identical=not moved, cov_branch_moved=len(moved_cov))
+        record(f"cov ({steps} steps + {rec['eval_pairs']} eval pairs)", rec["launches"])
+        emit("chain", "check", part="cov", **rec)
+        if not layout or moved or not moved_cov or len(rec["metrics_rows"]) != steps + 2:
+            raise AssertionError(f"chain cov: layout {layout}, moved outside the covariance branch {sorted(moved)}, "
+                                 f"inside {len(moved_cov)}, rows {rec['metrics_rows']}")
+        if on_card and (rec["launches_per_step"] != [{"fp32": 0, "bf16": 1}] * steps
+                        or rec["eval_launches"] != {"fp32": 0, "bf16": rec["eval_pairs"]}):
+            raise AssertionError(f"chain cov: launches {rec['launches_per_step']} in the steps, "
+                                 f"{rec['eval_launches']} for {rec['eval_pairs']} eval pairs")
+
+        # 4. temperature fit on the permanent holdout world, then calibration on the clip with it
+        small = [] if not rehearsal else ["--decoder_depth", "2"]
+        latent_attn.reset_launches()
+        start = time.perf_counter()
+        fit = _script("torch_fit_cov_temperature").main(
+            ["--weight", str(cand), "--root", f"data/randomized/seq_{CHAIN_WORLDS['fit']}"] + small
+            + (["--dtype", "fp32"] if rehearsal else []) + dev)
+        fit_s, fit_launches = time.perf_counter() - start, _latent_launches()
+        calib = cand.with_suffix(".calib.json")
+        latent_attn.reset_launches()
+        start = time.perf_counter()
+        data = ["--data", "real"] if not rehearsal else ["--data", "synthetic", "--max_pairs", "1"]
+        report = _script("torch_cov_calibration").main(["--weight", str(cand), "--calib", str(calib), "--out",
+                                                        str(tmp / "cov_calibration_recal")] + data + small + dev)
+        cal_s, cal_launches = time.perf_counter() - start, _latent_launches()
+        record(f"fit ({fit['pairs']} pairs)", fit_launches)
+        record(f"cov_calibration ({report['pairs']} pairs)", cal_launches)
+        emit("chain", "check", part="fit and calibration", calib=str(calib.relative_to(tmp)), tau2=fit["tau2"],
+             edges=fit["log10_sigma_edges"], fit_pairs=fit["pairs"], fit_coverage_raw=fit["fit_coverage_raw"],
+             fit_coverage_recalibrated=fit["fit_coverage_recalibrated"], fit_s=fit_s, fit_launches=fit_launches,
+             calibration={k: report[k] for k in ("pairs", "calib", "epe", "nll", "chi2_coverage")},
+             calibration_s=cal_s, calibration_launches=cal_launches,
+             reduced={"frames of seq_1049": [24, frames]})
+        if not (calib.exists() and all(math.isfinite(t) and t > 0 for t in fit["tau2"])
+                and math.isfinite(report["nll"])):
+            raise AssertionError(f"chain fit and calibration: {fit} {report}")
+        if on_card and (fit_launches != {"fp32": 0, "bf16": fit["pairs"]}
+                        or cal_launches != {"fp32": report["pairs"], "bf16": 0}):
+            raise AssertionError(f"chain fit and calibration: launches {fit_launches}, {cal_launches}")
+
+        # 5. the promotion gate against a temporary copy of the shipped files
+        shipped = tmp / "shipped" / "model" / "MACVO_FrontendCov.npz"
+        shipped.parent.mkdir(parents=True)
+        shutil.copyfile(CKPT, shipped)
+        shutil.copyfile(CKPT.with_suffix(".eval.json"), shipped.with_suffix(".eval.json"))
+        shutil.copyfile(ROOT / "eval_real_asset.json", tmp / "shipped" / "eval_real_asset.json")
+        shutil.copyfile(CKPT.with_name("MACVO_FrontendCov_metrics.csv"), shipped.with_name(
+            "MACVO_FrontendCov_metrics.csv"))
+        # identity temperatures (one band edge, tau2 1): the shipped weights' covariances as they are
+        shipped.with_suffix(".calib.json").write_text(json.dumps({"log10_sigma_edges": [0.0], "tau2": [1.0, 1.0]}))
+        files = sorted(p for p in (tmp / "shipped").rglob("*") if p.is_file())
+
+        def digest() -> dict:
+            return {str(p.relative_to(tmp)): hashlib.sha256(p.read_bytes()).hexdigest() for p in files}
+
+        before = digest()
+        gate = ["--shipped", str(shipped), "--record", str(shipped.with_suffix(".eval.json")),
+                "--e2e-json", str(tmp / "shipped" / "eval_real_asset.json")]
+        gate += small + (["--size", str(size)] if rehearsal else [])     # a CPU rehearsal measures a crop
+        promote = _script("torch_promote_checkpoint")
+        latent_attn.reset_launches()
+        start = time.perf_counter()
+        code = 0
+        try:
+            promote.main(["--candidate", str(cand)] + gate + dev)
+        except SystemExit as exc:
+            code = exc.code
+        gate_s, gate_launches = time.perf_counter() - start, _latent_launches()
+        untouched = digest() == before
+        record("promotion gate (refusal)", gate_launches)
+        shipped_record = json.loads(shipped.with_suffix(".eval.json").read_text())
+        emit("chain", "check", part="promotion gate", candidate=str(cand.relative_to(tmp)), exit_code=code,
+             shipped_record={k: shipped_record[k] for k in ("flow_epe_px", "ate_m", "platform")},
+             shipped_files_byte_identical=untouched, files=sorted(before), wall_s=gate_s, launches=gate_launches)
+        if (code == 2 and not untouched) or (not rehearsal and code != 2) or code not in (0, 2):
+            raise AssertionError(f"chain gate: exit {code}, shipped files byte-identical {untouched}")
+
+        # the self-promotion: --candidate relative to the working directory, --shipped absolute
+        self_cand = shipped.relative_to(tmp)
+        kept = {p: p.read_bytes() for p in (shipped, shipped.with_suffix(".calib.json"),
+                                            shipped.with_name("MACVO_FrontendCov_metrics.csv"))}
+        latent_attn.reset_launches()
+        start = time.perf_counter()
+        promote.main(["--candidate", str(self_cand), "--force"] + gate + dev)
+        self_s, self_launches = time.perf_counter() - start, _latent_launches()
+        record("self-promotion", self_launches)
+        new_record = json.loads(shipped.with_suffix(".eval.json").read_text())
+        e2e = json.loads((tmp / "shipped" / "eval_real_asset.json").read_text())
+        checks = {"weights_calib_curve_byte_identical": all(p.read_bytes() == b for p, b in kept.items()),
+                  "record_rewritten": new_record["platform"] == ("gpu" if on_card else "cpu")
+                  and new_record.get("promoted_from") == shipped.name,
+                  "e2e_json_rewritten": e2e["platform"] == new_record["platform"]}
+        emit("chain", "check", part="self-promotion", candidate=str(self_cand), shipped=str(shipped),
+             calib_present=True, wall_s=self_s, launches=self_launches,
+             record={k: new_record[k] for k in ("platform", "hardware", "flow_epe_px", "ate_m")}, card=card, **checks)
+        if not all(checks.values()):
+            raise AssertionError(f"chain self-promotion: {checks}")
+
+        # 6. the multi-sequence recipe: three SyntheticStereo scenes with AddImageNoise, eval during training
+        multi_yaml, reduced = _cut_recipe("FlowFormerCov_multi.yaml", tmp / "multi.yaml", rehearsal,
+                                          frames=MULTI_FRAMES if not rehearsal else 3, eval_freq=MULTI_EVAL_FREQ)
+        rec = _train_run("multi", ["--config", str(multi_yaml), "--steps", str(steps),
+                                   "--out", "model/FlowFormerCov_multi.npz"], device, rehearsal)
+        evals = [r for r in rec["metrics_rows"] if ",eval," in r]
+        rec.update(reduced={"Train.num_steps": [20000, steps], **reduced}, eval_rows=evals,
+                   dtype="bf16", decoder_depth=2 if rehearsal else 12, restore=None)
+        record(f"multi ({steps} steps + {len(evals)} x {rec['eval_pairs']} eval pairs)", rec["launches"])
+        emit("chain", "check", part="multi", **rec)
+        if len(evals) != steps // MULTI_EVAL_FREQ or not all(
+                math.isfinite(float(x)) for r in evals for x in r.split(",")[3:]):
+            raise AssertionError(f"chain multi: eval rows {evals}")
+        if on_card and (any(sum(s.values()) for s in rec["launches_per_step"])
+                        or rec["eval_launches"] != {"fp32": 0, "bf16": len(evals) * rec["eval_pairs"]}):
+            raise AssertionError(f"chain multi: launches {rec['launches_per_step']} in the steps, "
+                                 f"{rec['eval_launches']} for {len(evals)} evals of {rec['eval_pairs']} pairs")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
@@ -2980,7 +3375,15 @@ def main() -> int:
             by_phase.setdefault(name, {}).update(parts)
         emit("tools", "end", wall_s=time.perf_counter() - start, card=smi)
 
-    # 24. kernels (launches: the count of the main path's run of this selection, null where it did not run)
+    # 24. the shipped checkpoint's training chain: worlds, flow, cov, fit and calibration, gate, multi-sequence
+    if want("chain"):
+        emit("chain", "start", card=smi)
+        start = time.perf_counter()
+        for name, parts in phase_chain(device, args.size, smi).items():
+            by_phase.setdefault(name, {}).update(parts)
+        emit("chain", "end", wall_s=time.perf_counter() - start, limit_s=CHAIN_LIMIT_S, card=smi)
+
+    # 25. kernels (launches: the count of the main path's run of this selection, null where it did not run)
     if want("kernel"):
         kernels = []
         for name, rec in kernel_recs.items():

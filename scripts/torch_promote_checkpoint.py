@@ -161,7 +161,7 @@ def main(argv=None) -> dict:
     # without them removes the shipped ones (fitted for another head).
     cand_calib = cand.with_suffix(".calib.json")
     shipped_calib = shipped.with_suffix(".calib.json")
-    if cand_calib.exists() and cand_calib != shipped_calib:
+    if cand_calib.exists() and cand_calib.resolve() != shipped_calib.resolve():
         shutil.copyfile(cand_calib, shipped_calib)
     elif not cand_calib.exists() and shipped_calib.exists():
         shipped_calib.unlink()

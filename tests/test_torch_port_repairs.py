@@ -13,6 +13,10 @@
 * The LM solve whitens ill-conditioned 3x3 covariances (the icp graph's) with
   a pivoted LU inverse, as the JAX solver's ``jnp.linalg.inv``, not with a
   float32 adjugate that cancels.
+* The promotion gate compares the candidate's and the shipped calibration
+  files by their resolved paths, as it compares the weights and the curves: a
+  self-promotion spelled two ways left the records rewritten and then raised
+  ``SameFileError``.
 """
 
 from pathlib import Path
@@ -318,3 +322,40 @@ def test_float32_solve_whitens_ill_conditioned_covariances_as_jax():
     assert ours.dtype == torch.float32
     np.testing.assert_allclose(ours.numpy(), ref32, atol=1e-4, rtol=0)
     np.testing.assert_allclose(ours.numpy(), ref64, atol=1e-4, rtol=0)
+
+
+def test_self_promotion_spelled_two_ways_keeps_the_shipped_calibration(tmp_path, monkeypatch):
+    """``--candidate`` relative to the working directory, ``--shipped``
+    absolute, the same file, with a shipped ``.calib.json`` (the measurement
+    stubbed): the promotion finishes, the weights, the curve and the
+    calibration are left as they were, and both records are rewritten."""
+    import contextlib
+    import importlib.util
+    import io
+    import json
+
+    spec = importlib.util.spec_from_file_location("_torch_promote", ROOT / "scripts" / "torch_promote_checkpoint.py")
+    promote = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(promote)
+    model = tmp_path / "model"
+    model.mkdir()
+    files = {model / "MACVO_FrontendCov.npz": b"shipped weights",
+             model / "MACVO_FrontendCov.calib.json": b'{"tau2": [1.5]}\n',
+             model / "MACVO_FrontendCov_metrics.csv": b"step,split,loss,epe,px1,px3,nll\n"}
+    for path, data in files.items():
+        path.write_bytes(data)
+    measured = {"flow_epe_px": 3.31, "ate_m": 0.038,
+                "e2e": {k: {"rmse": 0.038, "mean": 0.031} for k in ("ATE", "RTE", "ROE", "RPE")}}
+    monkeypatch.setattr(promote, "measure", lambda *a, **k: dict(measured))
+    monkeypatch.chdir(tmp_path)
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = promote.main(["--candidate", "model/MACVO_FrontendCov.npz", "--force", "--device", "cpu",
+                            "--shipped", str(model / "MACVO_FrontendCov.npz"),
+                            "--record", str(model / "MACVO_FrontendCov.eval.json"),
+                            "--e2e-json", str(tmp_path / "eval_real_asset.json")])
+    assert out["gate_passed"] is True               # no record before: nothing to beat
+    assert {path: path.read_bytes() for path in files} == files
+    record = json.loads((model / "MACVO_FrontendCov.eval.json").read_text())
+    assert (record["weight"], record["promoted_from"], record["platform"]) == (
+        "MACVO_FrontendCov.npz", "MACVO_FrontendCov.npz", "cpu")
+    assert json.loads((tmp_path / "eval_real_asset.json").read_text())["metrics"] == measured["e2e"]
